@@ -1,0 +1,17 @@
+"""blurred_gan_tpu_torch — the PyTorch / CUDA port of ``blurred_gan_tpu``.
+
+The CelebA-128 blurred WGAN-GP training path on an NVIDIA GPU (Hopper), beside
+the JAX package that stays the reference. Images are NCHW. The one kernel the
+JAX package wrote in Pallas, the fused separable blur, is a hand-written CUDA
+kernel here (``ops/blur_cuda.py``, ``csrc/blur_planes.cu``). This package
+imports torch and never jax; from the JAX package it uses only the two
+numpy-only modules ``data.pipeline`` and ``sched.blur``.
+
+- ``ops.blur``         blur sizing policy, band matrices, ``blur_images``
+- ``ops.blur_cuda``    the kernel's build, wrapper and autograd Function
+- ``models``           DCGAN generator / critic, the ``GaussianBlur`` layer
+- ``losses.wgan``      WGAN-GP losses and the gradient penalty
+- ``train``            hyperparameters, GAN / TrainState, the step, ``Trainer.fit``
+- ``convert``          flax weights into the port's modules
+- ``train_celeba``     the command-line entry point
+"""
