@@ -4,9 +4,11 @@ The CelebA-128 blurred WGAN-GP training path on an NVIDIA GPU (Hopper), beside
 the JAX package that stays the reference. Images are NCHW. The one kernel the
 JAX package wrote in Pallas, the fused separable blur, is a hand-written CUDA
 kernel here (``ops/blur_cuda.py``, ``csrc/blur_planes.cu``). This package
-imports torch and never jax; from the JAX package it uses only the two
-numpy-only modules ``data.pipeline`` and ``sched.blur``.
+imports torch and never jax, and nothing of the JAX package: what it needs of
+that package's numpy-only modules it keeps as its own copies.
 
+- ``data.pipeline``    numpy batch stream, synthetic corpus, shard store
+- ``sched.blur``       the open-loop σ decay schedule
 - ``ops.blur``         blur sizing policy, band matrices, ``blur_images``
 - ``ops.blur_cuda``    the kernel's build, wrapper and autograd Function
 - ``models``           DCGAN generator / critic, the ``GaussianBlur`` layer

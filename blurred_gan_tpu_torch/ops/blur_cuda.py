@@ -7,7 +7,10 @@ plane ``p`` of a ``(P, H, W)`` float32 stack it computes
     out[p] = T_h @ X[p] @ T_w
 
 in one launch, with the intermediate ``T_h @ X[p]`` kept in shared memory
-(``csrc/blur_planes.cu``).
+(``csrc/blur_planes.cu``). The kernel skips the zeros of band matrices: each
+row tile of ``T_h`` and each column tile of ``T_w`` runs ``k`` only over the
+range where the tile has non-zero entries, read from ``T`` on the device.
+:func:`band_ranges` states those ranges where a CPU test can reach them.
 
 The blur is linear in the planes, so its backward is the same kernel with
 ``T_hᵀ`` and ``T_wᵀ`` (the port of the primitive's transpose rule). The
@@ -41,10 +44,14 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # Widest plane the kernel takes: its shared-memory intermediate holds 32 rows
-# of the (column-padded) plane, 32 x 1024 floats + staging = 168 KB of the
+# of the (column-padded) plane, 1024 x 36 floats + staging = 154 KB of the
 # 227 KB a block may use.
 MAX_W = 1024
 MAX_PLANES = 65535  # gridDim.y
+# The kernel's tiles (kRows, kWarpCols in the source): a block owns ROW_TILE
+# rows of T_h, a warp COL_TILE columns of T_w.
+ROW_TILE = 32
+COL_TILE = 32
 
 # Kernel launches since the last reset; incremented only where a launch
 # happens. Read and reset it as ``blur_cuda.launch_count``.
@@ -91,9 +98,47 @@ def _library():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.blur_planes_f32.restype = ctypes.c_int
+    lib.blur_planes_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.blur_planes_occupancy.restype = ctypes.c_int
     lib.blur_planes_error_string.argtypes = [ctypes.c_int]
     lib.blur_planes_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def occupancy(w: int) -> tuple[int, int]:
+    """``(blocks per SM, dynamic shared memory bytes per block)`` of the kernel
+    for ``w`` x ``w`` planes on the current CUDA device, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    lib = _library()
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = lib.blur_planes_occupancy(w, torch.cuda.current_device(), ctypes.byref(blocks),
+                                    ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError("blur kernel occupancy query failed: "
+                           + lib.blur_planes_error_string(err).decode())
+    return blocks.value, smem.value
+
+
+def band_ranges(t: torch.Tensor, tile: int, axis: int) -> list:
+    """Each tile's ``(first, last)`` index with a non-zero entry, as the kernel
+    finds them, or ``None`` for a tile that is all zero.
+
+    ``axis=0`` cuts ``t`` into tiles of ``tile`` rows and ranges over columns:
+    the kernel's phase 1 on ``T_h`` (``tile = ROW_TILE``). ``axis=1`` cuts it
+    into tiles of ``tile`` columns and ranges over rows: phase 2 on ``T_w``
+    (``tile = COL_TILE``). The kernel runs ``k`` over
+    ``[first & ~3, (last | 3) + 1)``, every term outside being an exact zero;
+    an empty tile writes zeros. Nothing on the main path calls this.
+    """
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    nz = (t != 0) if axis == 0 else (t != 0).t()
+    ranges = []
+    for start in range(0, nz.shape[0], tile):
+        idx = torch.nonzero(nz[start:start + tile].any(0)).flatten()
+        ranges.append((int(idx[0]), int(idx[-1])) if idx.numel() else None)
+    return ranges
 
 
 def blur_planes_reference(planes: torch.Tensor, t_h: torch.Tensor,

@@ -1,6 +1,6 @@
 """The host training loop (port of the ``fit`` part of ``blurred_gan_tpu/train/loop.py``).
 
-Batches come from the JAX package's numpy ``DataPipeline``; σ for each step is
+Batches come from the port's numpy ``DataPipeline``; σ for each step is
 ``BlurDecayController.sigma(n_batches)``; every step prints one log line and
 appends one JSON line to ``<log_dir>/metrics.jsonl``. Checkpoints, sample
 grids, metrics and the adaptive controller are not ported yet (ROADMAP).
@@ -15,8 +15,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from blurred_gan_tpu.data.pipeline import DataPipeline
-from blurred_gan_tpu.sched.blur import BlurDecayController
+from blurred_gan_tpu_torch.data.pipeline import DataPipeline
+from blurred_gan_tpu_torch.sched.blur import BlurDecayController
 from blurred_gan_tpu_torch.train.state import GAN, create_train_state
 from blurred_gan_tpu_torch.train.step import make_train_step
 

@@ -26,9 +26,9 @@ def set_float32_precision() -> None:
 
 
 def build_trainer(args):
-    from blurred_gan_tpu.data.pipeline import load_celeba
-    from blurred_gan_tpu.sched.blur import BlurDecayController
+    from blurred_gan_tpu_torch.data.pipeline import load_celeba
     from blurred_gan_tpu_torch.models.dcgan import celeba_discriminator, celeba_generator
+    from blurred_gan_tpu_torch.sched.blur import BlurDecayController
     from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters
     from blurred_gan_tpu_torch.train.loop import Trainer
     from blurred_gan_tpu_torch.train.state import GAN

@@ -10,16 +10,20 @@ Phases, each of which raises on failure:
 1. require a CUDA device; print the card's name and power limit (nvidia-smi);
 2. build the blur kernel from ``blurred_gan_tpu_torch/csrc`` with nvcc;
 3. hold the kernel against its plain PyTorch version (forward, backward and
-   the penalty's double backward) at 28², 64², 128² (192 planes), 256² and
-   16x32;
+   the penalty's double backward) at 28², 64², 128² (192 planes), 256²,
+   16x32 and 36x30, then at 192 planes of 128² with band matrices across the σ range
+   (the 3-tap floor, σ = 5, the clip at σ = 100), a random dense T and a T
+   with an all-zero row tile and column tile;
 4. the slice: ``Trainer.fit`` at the full CelebA-128 widths, batch 32, float32,
    σ₀ = 5, on the synthetic corpus, for 12 steps; losses finite, σ from
    ``BlurDecayController``, the kernel launched the same positive number of
-   times every step, jax never imported;
+   times every step, neither jax nor the JAX package ever imported;
 5. one step with the kernel against one step with the plain blur from the same
    weights and draws; then the step's images/s with each, and the kernel's
-   time per call against the plain version's; a profile of a few steps;
-6. one JSON line describing the kernel, then the result line.
+   time per call against the plain version's and its bound at σ = 5 and
+   σ = 100, for 192 and 96 planes; a profile of a few steps;
+6. the kernel's occupancy, one JSON line describing the kernel, then the
+   result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
 printed there on failure, and the exit code is then non-zero.
@@ -44,8 +48,15 @@ import torch  # noqa: E402
 RES, BATCH, SIGMA0, STEPS, NUM_EXAMPLES = 128, 32, 5.0, 12, 2048
 # (planes, H, W): the three orders of the blur at the shapes the tests use;
 # 192 planes at 128² is the critic's call on cat([fakes, reals]) at batch 32.
-KERNEL_SHAPES = [(192, 28, 28), (192, 64, 64), (192, 128, 128), (24, 256, 256), (6, 16, 32)]
+# 6x36x30 takes the kernel's scalar path (a width that is no multiple of 4).
+KERNEL_SHAPES = [(192, 28, 28), (192, 64, 64), (192, 128, 128), (24, 256, 256), (6, 16, 32),
+                 (6, 36, 30)]
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)   # float32 both sides, another summation order
+# σ of the band cases: the 3-tap floor, the run's σ₀, the clip to 128 taps.
+SIGMA_SWEEP = (0.1, SIGMA0, 100.0)
+# The card's published peaks (H100 SXM, 700 W): float32 off the tensor cores,
+# and device memory.
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # as the CPU parity tests
 STEP_TOL = dict(rtol=1e-3, atol=1e-4)  # one full step, kernel vs plain blur
 
@@ -61,14 +72,37 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_cases(blur_matrix, device):
+    """(label, planes, t_h, t_w) for phase 3."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    cases = []
+    for p, h, w in KERNEL_SHAPES:
+        cases.append((f"{p}x{h}x{w} sigma 2", torch.randn(p, h, w, device=device, generator=gen),
+                      blur_matrix(2.0, h, max(h, w), device=device),
+                      blur_matrix(2.0, w, max(h, w), device=device)))
+    p = 2 * BATCH * 3
+
+    def planes():
+        return torch.randn(p, RES, RES, device=device, generator=gen)
+
+    for sigma in SIGMA_SWEEP:
+        t = blur_matrix(sigma, RES, device=device)
+        cases.append((f"{p}x{RES}x{RES} sigma {sigma}", planes(), t, t))
+    dense = torch.randn(RES, RES, device=device, generator=gen) / RES ** 0.5
+    cases.append((f"{p}x{RES}x{RES} random dense T", planes(), dense, dense))
+    zero_tile = blur_matrix(SIGMA0, RES, device=device)
+    zero_tile[32:64, :] = 0   # an empty row tile of T_h
+    zero_tile[:, 64:96] = 0   # an empty column tile of T_w
+    cases.append((f"{p}x{RES}x{RES} zero-tile T", planes(), zero_tile, zero_tile))
+    return cases
+
+
 def check_kernel(blur_cuda, blur_matrix, device):
     """Phase 3. Returns the largest absolute error seen."""
     worst = 0.0
-    gen = torch.Generator(device=device).manual_seed(0)
-    for p, h, w in KERNEL_SHAPES:
-        x = torch.randn(p, h, w, device=device, generator=gen, requires_grad=True)
-        t_h = blur_matrix(2.0, h, max(h, w), device=device)
-        t_w = blur_matrix(2.0, w, max(h, w), device=device)
+    for label, x, t_h, t_w in kernel_cases(blur_matrix, device):
+        p = x.shape[0]
+        x.requires_grad_(True)
         pairs = []
         outs = {}
         for name, fn in (("cuda", blur_cuda.blur_planes),
@@ -82,11 +116,11 @@ def check_kernel(blur_cuda, blur_matrix, device):
         errs = []
         for order, tol, a, b in zip(("forward", "backward", "double backward"),
                                     (FWD_TOL, GRAD_TOL, GRAD_TOL), outs["cuda"], outs["plain"]):
-            torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{order} {p}x{h}x{w}: {m}")
+            torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{order} {label}: {m}")
             errs.append(float((a - b).abs().max()))
             pairs.append(f"{order} {errs[-1]:.3e}")
         worst = max(worst, *errs)
-        log(f"[kernel] {p}x{h}x{w}: max |cuda - plain|: " + ", ".join(pairs))
+        log(f"[kernel] {label}: max |cuda - plain|: " + ", ".join(pairs))
     return worst
 
 
@@ -125,6 +159,10 @@ def run_slice(blur_cuda, args):
         raise RuntimeError(f"{launches} launches, {sum(per_step)} counted by step")
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
+    reference = sorted(m for m in sys.modules
+                       if m == "blurred_gan_tpu" or m.startswith("blurred_gan_tpu."))
+    if reference:
+        raise RuntimeError(f"the JAX package was imported: {reference}")
     return trainer, history, launches, per_step
 
 
@@ -169,10 +207,22 @@ def step_ab(args, reals, card):
     return trainers["cuda"]
 
 
-def time_blur(blur_cuda, blur_matrix, device, planes, card, n=200):
-    """Phase 5c: ms per blur call, kernel and plain, by CUDA events."""
+def blur_bound(planes, t_h, t_w):
+    """(bound in ms, "bytes" or "operations") of one blur call on these inputs:
+    each input read once and the output written once, over the memory rate;
+    the products with a non-zero entry of T, over the float32 rate."""
+    h, w = t_h.shape[0], t_w.shape[0]
+    nbytes = 4 * (2 * planes * h * w + h * h + w * w)
+    flops = 2 * planes * (w * int(torch.count_nonzero(t_h)) + h * int(torch.count_nonzero(t_w)))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_blur(blur_cuda, blur_matrix, device, planes, sigma, card, n=200):
+    """Phase 5c: ms per blur call, kernel and plain (two cuBLAS float32
+    matmuls), by CUDA events, in turns; and the call's bound."""
     x = torch.randn(planes, RES, RES, device=device)
-    t = blur_matrix(SIGMA0, RES, device=device)
+    t = blur_matrix(sigma, RES, device=device)
 
     def per_call(fn):
         for _ in range(10):
@@ -190,11 +240,15 @@ def time_blur(blur_cuda, blur_matrix, device, planes, card, n=200):
         fn = blur_cuda.blur_planes_forward if name == "cuda" else blur_cuda.blur_planes_reference
         runs[name].append(per_call(fn))
     ms = {k: min(v) for k, v in runs.items()}
-    flops = 2 * planes * (RES ** 3 + RES ** 3)
-    log(f"[blur] {planes}x{RES}x{RES}: kernel {ms['cuda'] * 1e3:.1f} us/call "
-        f"({flops / ms['cuda'] / 1e9:.2f} TFLOP/s), plain {ms['plain'] * 1e3:.1f} us/call "
-        f"({flops / ms['plain'] / 1e9:.2f} TFLOP/s) on {card}")
-    return ms
+    bound_ms, bound_by = blur_bound(planes, t, t)
+    log(f"[blur] {planes}x{RES}x{RES} sigma {sigma}: kernel {ms['cuda'] * 1e3:.1f} us/call "
+        f"(runs {', '.join(f'{v * 1e3:.1f}' for v in runs['cuda'])}), plain "
+        f"{ms['plain'] * 1e3:.1f} us/call (runs {', '.join(f'{v * 1e3:.1f}' for v in runs['plain'])}), "
+        f"bound {bound_ms * 1e3:.1f} us by {bound_by}: kernel at "
+        f"{100 * bound_ms / ms['cuda']:.0f}% of its bound, "
+        f"{ms['plain'] / ms['cuda']:.2f}x the plain version's speed on {card}")
+    return {"planes": planes, "sigma": sigma, "ms": ms["cuda"], "plain_ms": ms["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def profile_steps(trainer, reals, card, n=3):
@@ -255,16 +309,28 @@ def main():
 
     reals = torch.from_numpy(next(trainer.dataset.batches(BATCH, seed=1))).to(device)
     kernel_trainer = step_ab(args, reals, card)
-    ms = time_blur(blur_cuda, blur_matrix, device, 2 * BATCH * 3, card)
-    time_blur(blur_cuda, blur_matrix, device, BATCH * 3, card)
+    # 192 planes: the critic on cat([fakes, reals]); 96: the other five calls.
+    timings = [time_blur(blur_cuda, blur_matrix, device, planes, sigma, card)
+               for sigma in (SIGMA0, 100.0) for planes in (2 * BATCH * 3, BATCH * 3)]
     profile_steps(kernel_trainer, reals, card)
 
+    blocks, smem = blur_cuda.occupancy(RES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = (RES // blur_cuda.ROW_TILE) * 2 * BATCH * 3
+    log(f"[occupancy] blur_planes at {RES}x{RES}: {blocks} blocks per SM, {smem} bytes of "
+        f"dynamic shared memory per block; {grid} blocks at {2 * BATCH * 3} planes fill "
+        f"{grid / (blocks * sms):.2f} waves of {blocks * sms} slots on {sms} SMs")
+    headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
         "name": "blur_planes", "route": "cuda",
         "source": "blurred_gan_tpu_torch/csrc/blur_planes.cu",
         "replaces": "blurred_gan_tpu/ops/blur_pallas.py:54",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms["cuda"], "plain_ms": ms["plain"]}]}), flush=True)
+        "ms": headline["ms"], "plain_ms": headline["plain_ms"],
+        "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
+        # The library call is the plain version itself: two cuBLAS matmuls.
+        "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
+        "planes": headline["planes"], "cases": timings}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -38,14 +38,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("p,h,w", [(6, 28, 28), (6, 64, 64), (192, 128, 128),
-                                   (3, 256, 256), (2, 16, 32)])
-def test_kernel_matches_plain(cuda_device, p, h, w):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(p, h, w, device=cuda_device, generator=gen, requires_grad=True)
-    t_h = blur_matrix(2.0, h, max(h, w), device=cuda_device)
-    t_w = blur_matrix(2.0, w, max(h, w), device=cuda_device)
-    before = blur_cuda.launch_count
+def assert_three_orders_match(x, t_h, t_w):
+    """Forward, backward and the penalty's double backward: kernel vs plain."""
+    p = x.shape[0]
+    x.requires_grad_(True)
     got = blur_cuda.blur_planes(x, t_h, t_w)
     want = blur_cuda.blur_planes_reference(x, t_h, t_w)
     torch.testing.assert_close(got, want, **FWD)
@@ -55,6 +51,65 @@ def test_kernel_matches_plain(cuda_device, p, h, w):
     (gg,) = torch.autograd.grad(torch.sum(torch.sqrt(torch.sum(g.reshape(p, -1) ** 2, 1))), x)
     (ggw,) = torch.autograd.grad(torch.sum(torch.sqrt(torch.sum(gw.reshape(p, -1) ** 2, 1))), x)
     torch.testing.assert_close(gg, ggw, **GRAD)
+    return got
+
+
+@pytest.mark.parametrize("sigma", [0.1, 2.0, 5.0, 100.0])
+def test_kernel_sigma_sweep(cuda_device, sigma):
+    # The 3-tap floor, σ = 2, the run's σ₀ and the clip to 128 taps: the band
+    # ranges go from 4 k per tile to all 128.
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(192, 128, 128, device=cuda_device, generator=gen)
+    t = blur_matrix(sigma, 128, device=cuda_device)
+    assert_three_orders_match(x, t, t)
+
+
+def test_kernel_zero_tile(cuda_device):
+    # An all-zero row tile of T_h and column tile of T_w: those outputs are 0.
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    t = blur_matrix(5.0, 128, device=cuda_device)
+    t[32:64, :] = 0
+    t[:, 64:96] = 0
+    got = assert_three_orders_match(torch.randn(8, 128, 128, device=cuda_device, generator=gen),
+                                    t, t)
+    assert torch.count_nonzero(got[:, 32:64]) == 0
+    assert torch.count_nonzero(got[:, :, 64:96]) == 0
+
+
+@pytest.mark.parametrize("p,h,w", [(3, 20, 12), (2, 8, 30), (4, 37, 5)])
+def test_kernel_narrower_than_a_column_tile(cuda_device, p, h, w):
+    # Fewer columns than a warp's tile, widths off the float4 path included.
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(p, h, w, device=cuda_device, generator=gen)
+    assert_three_orders_match(x, blur_matrix(1.5, h, max(h, w), device=cuda_device),
+                              blur_matrix(1.5, w, max(h, w), device=cuda_device))
+
+
+def test_kernel_unaligned_planes(cuda_device):
+    # A contiguous view at an offset of one float: the scalar-load path.
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(1 + 4 * 32 * 32, device=cuda_device, generator=gen)[1:].view(4, 32, 32)
+    t = blur_matrix(2.0, 32, device=cuda_device)
+    torch.testing.assert_close(blur_cuda.blur_planes_forward(x, t, t),
+                               blur_cuda.blur_planes_reference(x, t, t), **FWD)
+
+
+def test_occupancy_fills_the_card_in_one_wave(cuda_device):
+    # 192 planes of 128² are 768 blocks of 32 rows: one wave needs 6 per SM.
+    blocks, smem = blur_cuda.occupancy(128)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert smem < 48 * 1024
+    assert blocks * sms >= 192 * 128 // blur_cuda.ROW_TILE, (blocks, sms)
+
+
+@pytest.mark.parametrize("p,h,w", [(6, 28, 28), (6, 64, 64), (192, 128, 128),
+                                   (3, 256, 256), (2, 16, 32)])
+def test_kernel_matches_plain(cuda_device, p, h, w):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(p, h, w, device=cuda_device, generator=gen)
+    before = blur_cuda.launch_count
+    assert_three_orders_match(x, blur_matrix(2.0, h, max(h, w), device=cuda_device),
+                              blur_matrix(2.0, w, max(h, w), device=cuda_device))
     # forward 1, backward 1; the double backward goes back through both the
     # transposed blur and the forward blur: 2.
     assert blur_cuda.launch_count - before == 4

@@ -1,0 +1,61 @@
+"""The port imports neither jax nor anything of the JAX package.
+
+A fresh interpreter (this test process imports jax itself, in
+tests/conftest.py) imports every module of ``blurred_gan_tpu_torch``, runs one
+CPU step of the entry point as ``python -m`` would, and imports
+``chip_smoke``; then neither ``jax`` nor any ``blurred_gan_tpu`` module may be
+in ``sys.modules``. Its own source files are checked the same way.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+CHILD = """
+import importlib, pkgutil, runpy, sys
+import blurred_gan_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(blurred_gan_tpu_torch.__path__,
+                                               "blurred_gan_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.argv = ["train_celeba", "--resolution", "16", "--batch_size", "4", "--num_examples", "32",
+            "--max_steps", "1", "--device", "cpu", "--log_dir", sys.argv[1]]
+runpy.run_module("blurred_gan_tpu_torch.train_celeba", run_name="__main__", alter_sys=True)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "blurred_gan_tpu"
+             or m.startswith("blurred_gan_tpu."))
+assert not bad, bad
+print("imported", len(names), "modules")
+"""
+
+
+def test_port_imports_nothing_of_jax(tmp_path):
+    datasets = tmp_path / "datasets"  # no CelebA here: the synthetic corpus
+    datasets.mkdir()
+    env = dict(os.environ, DATASETS_DIR=str(datasets), PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", CHILD, str(tmp_path / "log")], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "[trainer] step 1" in out.stdout
+    assert (tmp_path / "log" / "metrics.jsonl").exists()
+
+
+def test_no_source_file_names_the_jax_package():
+    files = sorted((REPO / "blurred_gan_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                assert top not in ("jax", "blurred_gan_tpu", "flax"), f"{path}: imports {mod}"

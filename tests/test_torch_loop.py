@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from blurred_gan_tpu.data.pipeline import synthetic_dataset
-from blurred_gan_tpu.sched.blur import BlurDecayController
 from blurred_gan_tpu_torch import train_celeba
+from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
 from blurred_gan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
+from blurred_gan_tpu_torch.sched.blur import BlurDecayController
 from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters
 from blurred_gan_tpu_torch.train.loop import Trainer
 from blurred_gan_tpu_torch.train.state import GAN
@@ -87,6 +87,7 @@ history = main(["--resolution", "8", "--batch_size", "4", "--max_steps", "1",
                 "--num_examples", "8", "--device", "cpu", "--log_dir", {str(tmp_path)!r}])
 assert len(history) == 1
 assert "jax" not in sys.modules, "jax was imported"
+assert not [m for m in sys.modules if m.split(".")[0] == "blurred_gan_tpu"]
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
