@@ -8,12 +8,15 @@ imports torch and never jax, and nothing of the JAX package: what it needs of
 that package's numpy-only modules it keeps as its own copies.
 
 - ``data.pipeline``    numpy batch stream, synthetic corpus, shard store
-- ``sched.blur``       the open-loop σ decay schedule
+- ``sched.blur``       the open-loop σ decay and the adaptive σ controller
 - ``ops.blur``         blur sizing policy, band matrices, ``blur_images``
 - ``ops.blur_cuda``    the kernel's build, wrapper and autograd Function
 - ``models``           DCGAN generator / critic, the ``GaussianBlur`` layer
 - ``losses.wgan``      WGAN-GP losses and the gradient penalty
-- ``train``            hyperparameters, GAN / TrainState, the step, ``Trainer.fit``
-- ``convert``          flax weights into the port's modules
+- ``train``            hyperparameters, GAN / TrainState, the step, hooks,
+                       checkpoints, ``Trainer`` (fit, evaluate, export)
+- ``metrics``          SWD, FID, the InceptionV3 trunk
+- ``utils``            config flags, images and PNGs, logging, run dirs, watchdog
+- ``convert``          the JAX package's weights into the port's modules
 - ``train_celeba``     the command-line entry point
 """

@@ -1,4 +1,4 @@
-"""Carry flax weights into the port's modules.
+"""Carry the JAX package's weights into the port.
 
 ``flax_to_torch(module, params, batch_stats)`` takes the JAX package's nested
 dicts (``Dense_0``, ``BatchNorm_k``, ``ConvTranspose_k``, ``Conv_k``; numpy or
@@ -11,12 +11,20 @@ jax arrays) and copies them into a ``DCGANGenerator`` or ``DCGANDiscriminator``:
 
 Flax names its submodules per type in creation order, which is the order the
 port's modules list them in.
+
+For the metrics' feature extractors, given as numpy arrays:
+
+- ``inception_params_to_torch``: the InceptionV3 trunk's npz-layout dict
+  (``{scope: {w (HWIO), beta, mean, var}}``) into the port's (OIHW kernels);
+- ``random_conv_weights_to_torch``: the random-conv FID embedding's four HWIO
+  kernels and its ``(256, dim)`` projection, for
+  ``random_conv_features(..., weights=...)``.
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,3 +91,24 @@ def flax_to_torch(module, params: Mapping, batch_stats: Optional[Mapping] = None
         _copy(module.dense.bias, params["Dense_0"]["bias"], "Dense_0.bias")
         return module
     raise TypeError(f"no flax mapping for {type(module).__name__}")
+
+
+def _tensor(arr, device=None) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+
+
+def inception_params_to_torch(params: Mapping, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{scope: {"w": HWIO, "beta", "mean", "var"}}`` numpy arrays -> the
+    port's trunk parameters, kernels OIHW."""
+    return {scope: {field: _tensor(np.asarray(arr).transpose(3, 2, 0, 1) if field == "w" else arr,
+                                   device)
+                    for field, arr in unit.items()}
+            for scope, unit in params.items()}
+
+
+def random_conv_weights_to_torch(kernels: Sequence, proj, device=None
+                                 ) -> Tuple[list, torch.Tensor]:
+    """The random-conv embedding's HWIO kernels and projection as
+    ``(OIHW kernels, projection)`` tensors."""
+    return ([_tensor(np.asarray(k).transpose(3, 2, 0, 1), device) for k in kernels],
+            _tensor(proj, device))

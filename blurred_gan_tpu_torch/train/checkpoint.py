@@ -1,0 +1,179 @@
+"""Checkpoint and resume of the train state (port of ``blurred_gan_tpu/train/checkpoint.py``).
+
+A checkpoint is one ``torch.save`` file, ``<directory>/<samples_seen>.pt``,
+keyed by examples seen. It holds:
+
+- both modules' ``state_dict`` (the generator's BatchNorm running statistics
+  included);
+- both Adam ``state_dict``;
+- the ``n_img`` and ``n_batches`` counters;
+- ``aux``, a JSON string of host-side state (the adaptive σ controller).
+
+Only tensors, numbers, strings, tuples and dicts, so ``torch.load(...,
+weights_only=True)`` reads it. A save writes a temporary file and then
+``os.replace``\\ s it, so an interrupted save never leaves half a checkpoint.
+Retention: the ``max_to_keep`` latest, plus every checkpoint saved at least
+``keep_time_interval_hours`` after the previous one so kept (file times, so
+the rule holds across restarts). The saves are synchronous. The step draws
+its randomness from ``(seed, n_batches)``, so no generator state is saved.
+
+Also the JSON sidecars (``hyper_parameters.json``, ``train_config.json``) and
+the save on SIGINT / SIGTERM.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import signal
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+_SUFFIX = ".pt"
+
+
+class CheckpointManager:
+    """Saves and restores (TrainState, aux dict) pairs under ``directory``."""
+
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 keep_time_interval_hours: Optional[float] = 1.0):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self.keep_time_interval_hours = keep_time_interval_hours
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step}{_SUFFIX}")
+
+    def all_steps(self) -> List[int]:
+        names = (n[:-len(_SUFFIX)] for n in os.listdir(self.directory) if n.endswith(_SUFFIX))
+        return sorted(int(n) for n in names if n.isdigit())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, samples_seen: int, state, aux: Optional[Dict] = None) -> str:
+        """Write the checkpoint of ``state`` keyed by ``samples_seen``; returns its path."""
+        payload = {
+            "generator": state.generator.state_dict(),
+            "discriminator": state.discriminator.state_dict(),
+            "g_opt": state.g_opt.state_dict(),
+            "d_opt": state.d_opt.state_dict(),
+            "n_img": int(state.n_img),
+            "n_batches": int(state.n_batches),
+            "aux": json.dumps(aux or {}),
+        }
+        path = self._path(int(samples_seen))
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        self._remove_old()
+        return path
+
+    def _remove_old(self) -> None:
+        steps = self.all_steps()
+        old = steps[:-self.max_to_keep] if self.max_to_keep > 0 else []
+        interval = (self.keep_time_interval_hours or 0) * 3600.0
+        last_kept = None
+        for step in old:
+            t = os.path.getmtime(self._path(step))
+            if interval and (last_kept is None or t - last_kept >= interval):
+                last_kept = t  # the interval keeper
+                continue
+            os.remove(self._path(step))
+
+    def restore_latest(self, state) -> Optional[Tuple[Dict, int]]:
+        """Load the newest checkpoint into ``state`` in place and return
+        ``(aux, samples_seen)``; None if there is none."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        # Loaded on the CPU: load_state_dict copies parameters, buffers and
+        # Adam moments to their parameters' device, and keeps Adam's step
+        # counter on the CPU, where a fresh optimizer has it.
+        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        state.generator.load_state_dict(payload["generator"])
+        state.discriminator.load_state_dict(payload["discriminator"])
+        state.g_opt.load_state_dict(payload["g_opt"])
+        state.d_opt.load_state_dict(payload["d_opt"])
+        state.n_img = payload["n_img"]
+        state.n_batches = payload["n_batches"]
+        return json.loads(payload["aux"]), step
+
+
+# ---------------------------------------------------------------------------
+# JSON sidecars next to the checkpoints
+# ---------------------------------------------------------------------------
+
+
+def save_sidecars(run_dir: str, hparams=None, config=None) -> None:
+    if hparams is not None:
+        hparams.save_json(os.path.join(run_dir, "hyper_parameters.json"))
+    if config is not None:
+        config.save_json(os.path.join(run_dir, "train_config.json"))
+
+
+def load_sidecar(run_dir: str, cls, filename: str):
+    path = os.path.join(run_dir, filename)
+    if os.path.exists(path):
+        return cls.from_json(path)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Save on Ctrl-C / SIGTERM
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def save_on_interrupt(save_fn, defer: bool = False):
+    """Run a training block; on SIGINT/SIGTERM call ``save_fn()`` once, then
+    raise KeyboardInterrupt so the caller unwinds. Installs signal handlers,
+    so it must run on the main thread.
+
+    ``defer=True``: the handler only records the signal; the caller invokes the
+    yielded ``check()`` at points where its state is whole (not inside a
+    step), and ``check()`` then saves once and raises KeyboardInterrupt. A
+    second signal while one is pending unwinds at once (escape hatch for a
+    stuck step); the save is still attempted, and a failing save is reported,
+    not allowed to stop the unwind.
+    """
+    fired = {"done": False}
+    pending = {"sig": False}
+
+    def do_save():
+        if fired["done"]:
+            return
+        fired["done"] = True
+        try:
+            save_fn()
+        except Exception as e:  # noqa: BLE001 — the unwind below must still happen
+            print(f"[checkpoint] interrupt save failed: {e!r}")
+
+    def handler(signum, frame):
+        if defer and not pending["sig"]:
+            pending["sig"] = True
+            print("[trainer] signal received - will checkpoint at the next safe "
+                  "point; send again to force immediate unwind", flush=True)
+            return
+        do_save()
+        raise KeyboardInterrupt
+
+    def check():
+        if pending["sig"]:
+            do_save()
+            raise KeyboardInterrupt
+
+    old_int = signal.signal(signal.SIGINT, handler)
+    old_term = signal.signal(signal.SIGTERM, handler)
+    try:
+        yield check
+        # A deferred signal that landed after the caller's last check must
+        # still be acted on, not dropped when the handlers are restored.
+        check()
+    finally:
+        signal.signal(signal.SIGINT, old_int)
+        signal.signal(signal.SIGTERM, old_term)

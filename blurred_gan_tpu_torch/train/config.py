@@ -1,32 +1,31 @@
-"""Hyperparameter dataclasses (copy of ``blurred_gan_tpu/train/config.py``).
+"""Run configuration and hyperparameter dataclasses (copy of
+``blurred_gan_tpu/train/config.py``).
 
 Copied rather than imported because importing the JAX package's ``train``
-subpackage loads jax. Same classes, fields and defaults, and the JSON sidecar
-writer; the command line declares its flags itself. The step accepts the default values of the fields the port does
-not implement yet and raises on any other (``train/step.py``).
+subpackage loads jax. Same classes, fields and defaults; flags and JSON
+sidecars through the mixins of ``utils.config``. The step accepts the default
+values of the fields the port does not implement yet and raises on any other
+(``train/step.py``).
 """
 
 from __future__ import annotations
 
-import dataclasses
-import json
 from dataclasses import dataclass
-from typing import Any, Dict
 
-
-class JsonSerializable:
-    """JSON round-trip for config dataclasses."""
-
-    def asdict(self) -> Dict[str, Any]:
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-
-    def save_json(self, file_path: str) -> None:
-        with open(file_path, "w") as f:
-            json.dump(self.asdict(), f, indent=1)
+from blurred_gan_tpu_torch.utils.config import JsonSerializable, ParseableFromCommandLine
 
 
 @dataclass
-class WGANHyperParameters(JsonSerializable):
+class TrainingConfig(JsonSerializable, ParseableFromCommandLine):
+    """Run-level configuration."""
+
+    log_dir: str = "results/log"
+    checkpoint_dir: str = ""  # empty -> <log_dir>/checkpoints
+    save_image_summaries_interval: int = 50
+
+
+@dataclass
+class WGANHyperParameters(JsonSerializable, ParseableFromCommandLine):
     learning_rate: float = 0.001
     g_learning_rate: float = 0.0  # TTUR; 0.0 shares learning_rate
     d_steps_per_g_step: int = 1

@@ -20,6 +20,9 @@ Random draws come from ``state.rng`` reseeded from ``(seed, n_batches)``
 every step, in the order ``z_d``, dropout, GP ``alpha``, ``z_g``. A step can
 also take ``z_d``, ``z_g`` and ``alpha`` pinned through ``noise``.
 
+``make_sample_fn`` is the eval-mode generator call behind sample grids and
+evaluation.
+
 Not ported yet (ROADMAP queue 1, step variants): ``d_steps_per_g_step > 1``,
 lazy GP, EMA, TTUR, flip augmentation, gradient accumulation, and the
 penalty-free WGAN.
@@ -116,3 +119,19 @@ def make_train_step(gan: GAN, hparams, *, seed: int = 0):
         return {k: v.detach() for k, v in metrics.items()}, fakes
 
     return step
+
+
+def make_sample_fn(gan: GAN, use_ema: bool = False):
+    """``sample(state, latents) -> NCHW images``: the generator in eval mode
+    (running BatchNorm statistics), without gradient. ``use_ema=True`` would
+    sample the EMA weights, which wait for the EMA step variant."""
+    if use_ema:
+        raise NotImplementedError(
+            "sampling the EMA generator is not ported yet: the port has no EMA "
+            "step variant (ROADMAP queue 1, step variants)")
+
+    @torch.no_grad()
+    def sample(state: TrainState, latents: torch.Tensor) -> torch.Tensor:
+        return gan.generate(latents, train=False)
+
+    return sample

@@ -159,3 +159,43 @@ def test_step_kernel_matches_plain_blur(cuda_device):
     assert launches == {"cuda": 6, "torch": 0}
     for k, v in metrics["cuda"].items():
         torch.testing.assert_close(v, metrics["torch"][k], **STEP, msg=k)
+
+
+def test_restore_on_the_card_is_exact_and_keeps_adams_step_on_the_cpu(cuda_device, tmp_path):
+    # A checkpoint of a card's state restores into a fresh state bit for bit,
+    # each tensor on the device a fresh optimizer gives it (Adam's step
+    # counter on the CPU), and the next steps then agree.
+    from blurred_gan_tpu_torch.train.checkpoint import CheckpointManager
+
+    def narrow():
+        gan = GAN(DCGANGenerator(latent_size=8, init_features=32,
+                                 blocks=((32, 1), (16, 2), (8, 2))),
+                  DCGANDiscriminator(channels=(8, 16), in_channels=3, image_hw=(16, 16)),
+                  latent_size=8)
+        hp = BlurredWGANGPHyperParameters(batch_size=4, global_batch_size=4)
+        return gan, hp, create_train_state(gan, hp, device=cuda_device, seed=0)
+
+    reals = torch.randint(0, 256, (4, 16, 16, 3), dtype=torch.uint8, device=cuda_device)
+    gan, hp, live = narrow()
+    step = make_train_step(gan, hp, seed=0)
+    step(live, reals, 1.5)
+    ckpt = CheckpointManager(str(tmp_path), keep_time_interval_hours=None)
+    ckpt.save(live.n_img, live)
+    gan2, _, restored = narrow()
+    assert ckpt.restore_latest(restored) == ({}, 4)
+    assert (restored.n_img, restored.n_batches) == (4, 1)
+    for name in ("g_opt", "d_opt"):
+        a = getattr(live, name).state_dict()["state"]
+        b = getattr(restored, name).state_dict()["state"]
+        for i in a:
+            for k, v in a[i].items():
+                assert v.device == b[i][k].device and torch.equal(v, b[i][k]), (name, i, k)
+            assert b[i]["step"].device.type == "cpu"
+    for m, m2 in ((live.generator, restored.generator),
+                  (live.discriminator, restored.discriminator)):
+        for (k, v), (_, v2) in zip(m.state_dict().items(), m2.state_dict().items()):
+            assert v.device == v2.device and torch.equal(v, v2), k
+    got = make_train_step(gan2, hp, seed=0)(restored, reals, 1.5)[0]
+    want = step(live, reals, 1.5)[0]
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, **STEP, msg=k)
