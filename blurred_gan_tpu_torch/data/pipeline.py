@@ -8,7 +8,8 @@ stream at the exact batch by index arithmetic alone, and the stream is
 byte-equal to the JAX package's for the same dataset and seed.
 
 Copied: ``ArrayDataset``, ``synthetic_dataset``, the ``shard-*.npy`` store
-(``ShardedArrayDataset``), ``DataPipeline`` and ``load_celeba``, without the
+(``ShardedArrayDataset``, with ``materialize`` for the device-resident mode),
+``DataPipeline``, ``load_mnist`` and ``load_celeba``, without the
 multi-process sharding options (the port trains on one device). Not copied:
 the JPEG / native-decoder folder path (``ImageFolderDataset``); ``load_celeba``
 raises on a directory of images instead (ROADMAP queue 1, item 9). Convert such
@@ -145,6 +146,19 @@ class ShardedArrayDataset:
             out[mask] = self._shards[s][idx[mask] - self._starts[s]]
         return out
 
+    def materialize(self) -> ArrayDataset:
+        """The (capped) store concatenated into memory: the bridge to the
+        device-resident chunked mode, which parks ``.images`` on the card.
+        Only the shards inside the ``num_examples`` cap are read."""
+        parts, remaining = [], self._total
+        for s in self._shards:
+            take = min(remaining, s.shape[0])
+            if take <= 0:
+                break
+            parts.append(np.asarray(s[:take]))
+            remaining -= take
+        return ArrayDataset(np.concatenate(parts), name=f"{self.name}:materialized")
+
     def batches(self, batch_size: int, *, seed: int = 0, start_epoch: int = 0,
                 start_batch: int = 0) -> Iterator[np.ndarray]:
         """The same stream contract (and values) as ``ArrayDataset.batches``."""
@@ -155,6 +169,31 @@ class ShardedArrayDataset:
 
 def _datasets_dir() -> str:
     return os.environ.get("DATASETS_DIR", os.path.expanduser("~/datasets"))
+
+
+def load_mnist(path: Optional[str] = None, split: str = "train",
+               allow_synthetic_fallback: bool = True) -> ArrayDataset:
+    """MNIST 28x28x1 from a local ``mnist.npz`` (Keras layout: x_train/x_test).
+
+    Searches ``path``, then ``$DATASETS_DIR/mnist.npz`` and
+    ``~/.keras/datasets/mnist.npz``, as the JAX package does; without one, the
+    deterministic synthetic 28x28x1 corpus of 60,000 examples.
+    """
+    candidates = [path] if path else [
+        os.path.join(_datasets_dir(), "mnist.npz"),
+        os.path.expanduser("~/.keras/datasets/mnist.npz"),
+    ]
+    for cand in candidates:
+        if cand and os.path.exists(cand):
+            with np.load(cand) as d:
+                x = d["x_train" if split == "train" else "x_test"]
+            return ArrayDataset(x[..., None].astype(np.uint8), name="mnist")
+    if not allow_synthetic_fallback:
+        raise FileNotFoundError(
+            f"mnist.npz not found in {candidates}; set $DATASETS_DIR or pass path=")
+    print("[data] mnist.npz not found locally - using deterministic synthetic "
+          "28x28x1 surrogate (60000 examples)")
+    return synthetic_dataset((28, 28, 1), num_examples=60_000)
 
 
 def load_celeba(path: Optional[str] = None, resolution: int = 128,

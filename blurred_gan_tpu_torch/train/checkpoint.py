@@ -12,6 +12,9 @@ keyed by examples seen. It holds:
 Only tensors, numbers, strings, tuples and dicts, so ``torch.load(...,
 weights_only=True)`` reads it. A save writes a temporary file and then
 ``os.replace``\\ s it, so an interrupted save never leaves half a checkpoint.
+A restore keeps the live optimizer's ``capturable`` setting (see
+:func:`_load_optimizer`), so checkpoints interchange between the CPU and the
+card and between ``Trainer.fit`` and ``Trainer.fit_device_resident``.
 Retention: the ``max_to_keep`` latest, plus every checkpoint saved at least
 ``keep_time_interval_hours`` after the previous one so kept (file times, so
 the rule holds across restarts). The saves are synchronous. The step draws
@@ -30,6 +33,8 @@ import signal
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from blurred_gan_tpu_torch.train.state import set_capturable
 
 _SUFFIX = ".pt"
 
@@ -92,16 +97,27 @@ class CheckpointManager:
         if step is None:
             return None
         # Loaded on the CPU: load_state_dict copies parameters, buffers and
-        # Adam moments to their parameters' device, and keeps Adam's step
-        # counter on the CPU, where a fresh optimizer has it.
+        # Adam moments to their parameters' device.
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
         state.generator.load_state_dict(payload["generator"])
         state.discriminator.load_state_dict(payload["discriminator"])
-        state.g_opt.load_state_dict(payload["g_opt"])
-        state.d_opt.load_state_dict(payload["d_opt"])
+        _load_optimizer(state.g_opt, payload["g_opt"])
+        _load_optimizer(state.d_opt, payload["d_opt"])
         state.n_img = payload["n_img"]
         state.n_batches = payload["n_batches"]
         return json.loads(payload["aux"]), step
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
+    """``opt.load_state_dict(saved)``, keeping ``opt``'s own ``capturable``
+    setting and its step counters where that setting puts them
+    (:func:`~blurred_gan_tpu_torch.train.state.set_capturable`).
+    ``load_state_dict`` would take both from the checkpoint, so a checkpoint
+    written by the chunked mode (capturable Adam) would not restore into a CPU
+    run or ``fit``, nor one written by ``fit`` into the chunked mode."""
+    capturable = any(group.get("capturable", False) for group in opt.param_groups)
+    opt.load_state_dict(saved)
+    set_capturable(opt, capturable)
 
 
 # ---------------------------------------------------------------------------

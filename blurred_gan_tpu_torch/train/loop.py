@@ -20,8 +20,13 @@ on it; the scalars' copy to the host is issued right after step N, so
 waiting for it does not wait for step N+1. The adaptive controller needs each
 step's scores before it picks the next σ, so with it the host works in step.
 
-Not ported: the device-resident chunked mode (``fit_device_resident``) and
-the multi-process paths (ROADMAP queue 1, items 8 and 12).
+``fit_device_resident`` is the chunked mode of ``train/fast.py``: the dataset
+on the device, K steps per chunk (a CUDA graph replayed K times on the card),
+σ and the adaptive controller on the device, one fetch of the chunk's
+metrics; hooks and logging then replay per step, so checkpoints and grids
+land on chunk boundaries.
+
+Not ported: the multi-process paths (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -43,9 +48,11 @@ from blurred_gan_tpu_torch.ops.blur import blur_images
 from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController, BlurDecayController
 from blurred_gan_tpu_torch.train.checkpoint import (
     CheckpointManager, save_on_interrupt, save_sidecars)
+from blurred_gan_tpu_torch.train.fast import ChunkRunner, chunk_indices
 from blurred_gan_tpu_torch.train.hooks import EveryNExamples, HookList
-from blurred_gan_tpu_torch.train.state import GAN, TrainState, create_train_state
-from blurred_gan_tpu_torch.train.step import make_sample_fn, make_train_step
+from blurred_gan_tpu_torch.train.state import (
+    GAN, TrainState, create_train_state, set_capturable)
+from blurred_gan_tpu_torch.train.step import make_sample_fn, make_train_step, step_seed
 from blurred_gan_tpu_torch.utils.images import normalize_images, samples_grid, write_png
 from blurred_gan_tpu_torch.utils.logging import MetricsLogger
 from blurred_gan_tpu_torch.utils.watchdog import fetch as watchdog_fetch
@@ -54,10 +61,25 @@ GRID_SAMPLES = 64
 HISTORY_STEPS = 1024  # per-step logs kept in Trainer.history
 # Seed words of the sample grid's latents, beside the step's (seed, n_batches).
 _GRID_SEED_WORDS = (0x67726964, 0)
+# Offsets of a chunk-boundary feeder measurement: its reals' shuffle seed and
+# its latents' step counter, off the training stream (the JAX package's).
+_FEEDER_DATA_SEED, _FEEDER_LATENT_STEP = 7919, 1_000_000_000
 
 
 def _nhwc_numpy(images: torch.Tensor) -> np.ndarray:
     return images.detach().permute(0, 2, 3, 1).to(torch.float32).cpu().numpy()
+
+
+def _copy_to_host(x: torch.Tensor):
+    """(host tensor, ready event): ``x``'s copy to the host, issued now and
+    asynchronous on a CUDA device, where the event marks its end; on the CPU
+    ``x`` itself and None."""
+    if x.device.type != "cuda":
+        return x, None
+    host = x.to("cpu", non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
 
 
 def to_unit_range(reals: torch.Tensor) -> torch.Tensor:
@@ -136,7 +158,9 @@ class Trainer:
     ``device``: where the networks live and the steps run. ``history``: the
     logs of the last ``HISTORY_STEPS`` steps, each with ``n_batches``,
     ``n_img`` and the step's ``images_per_sec`` (between consecutive steps'
-    host work).
+    host work; in the chunked mode, its chunk's). ``chunk_runner``: the
+    chunked mode's runner (its graph and capture time), kept for the next
+    ``fit_device_resident`` call while it can serve it.
     """
 
     def __init__(self, gan: GAN, hparams, dataset, *, device,
@@ -179,6 +203,7 @@ class Trainer:
         self._last_metrics: Dict[str, float] = {}
         self.history: collections.deque = collections.deque(maxlen=HISTORY_STEPS)
         self._fetch_warmed = False
+        self.chunk_runner: Optional[ChunkRunner] = None
         self._maybe_restore()
         self._build_hooks()
 
@@ -284,9 +309,12 @@ class Trainer:
     def fit(self, total_examples: int, max_steps: Optional[int] = None) -> TrainState:
         """Train until ``total_examples`` images have been seen (across
         restarts), ``max_steps`` steps have run in this call, or the adaptive
-        controller stops; then checkpoint and return the state."""
+        controller stops; then checkpoint and return the state. Adam runs
+        non-capturable here, its step counters on the host."""
         self._fetch_warmed = False
         self._write_run_manifest()
+        set_capturable(self.state.g_opt, False)
+        set_capturable(self.state.d_opt, False)
         bs = self.hparams.global_batch_size
         self._steps_per_epoch = max(self.dataset.num_examples // bs, 1)
         n = self.state.n_batches
@@ -336,21 +364,16 @@ class Trainer:
 
     def _copy_scalars(self, metrics: Dict[str, torch.Tensor]):
         """(names, host tensor, ready event): the step's scalars stacked into
-        one vector and its copy to the host issued now, asynchronously on a
-        CUDA device; the event marks the copy's end."""
+        one vector and its copy to the host issued now."""
         names = sorted(metrics)
         packed = torch.stack([metrics[k].to(torch.float32) for k in names])
-        if packed.device.type != "cuda":
-            return names, packed, None
-        host = packed.to("cpu", non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        return names, host, ready
+        return (names, *_copy_to_host(packed))
 
-    def _fetch(self, host: torch.Tensor, ready, what: str) -> np.ndarray:
-        """Wait for a copy under the watchdog; the first fetch of a fit call
+    def _fetch(self, host: torch.Tensor, ready, what: str, steps: int = 1) -> np.ndarray:
+        """Wait for a copy of ``steps`` steps' scalars under the watchdog
+        (``steps`` times the per-step budget); the first fetch of a fit call
         also waits for the first step's warm-up and gets the larger budget."""
-        t = self.cfg.device_fetch_timeout_s
+        t = self.cfg.device_fetch_timeout_s * steps
         if t and t > 0 and not self._fetch_warmed:
             t = max(t, self.cfg.first_device_fetch_timeout_s)
         out = watchdog_fetch(host, t, what=what, ready=ready)
@@ -375,14 +398,7 @@ class Trainer:
                 print("[trainer] adaptive controller reached min std - stopping")
                 self._stop = True
 
-        t_last, n_last = self._throughput
-        if time.time() - t_last > 5.0:
-            t_now = time.time()
-            logs["images_per_sec"] = (n_img - n_last) / (t_now - t_last)
-            self._throughput = (t_now, n_img)
-            print(f"[trainer] {n_img} examples ({n_batches} batches) "
-                  f"d_loss={logs['disc_loss']:+.4f} std={logs['std']:.4f} "
-                  f"{logs['images_per_sec']:.1f} img/s", flush=True)
+        self._log_progress(n_img, n_batches, logs)
 
         reals_f = None
         interval = self.cfg.image_summaries_interval_batches
@@ -404,6 +420,138 @@ class Trainer:
         self._last_metrics = logs
         self.history.append(dict(logs, n_batches=n_batches, n_img=n_img,
                                  images_per_sec=step_rate))
+
+    def fit_device_resident(self, total_examples: int, chunk_steps: int = 50,
+                            max_chunks: Optional[int] = None) -> TrainState:
+        """Train in chunks of ``chunk_steps`` steps on a device-resident copy
+        of the dataset (``train/fast.py``) until ``total_examples`` images have
+        been seen, ``max_chunks`` chunks have run in this call, or the adaptive
+        controller stops; then checkpoint and return the state.
+
+        Progress is quantised to whole chunks, so a run may overshoot
+        ``total_examples`` by up to ``chunk_steps * batch - 1`` examples. After
+        each chunk the host fetches its metrics once, advances its counters by
+        the steps the chunk executed, and replays the hooks and logging per
+        step, so checkpoints and sample grids land on chunk boundaries and see
+        the chunk's final state. Metric feeders whose hook fired are measured
+        at the chunk boundary against fresh samples (:meth:`_run_feeder_eval`).
+        Image summaries need each step's batch, which never reaches the host
+        in this mode, so there are none. The runner, and on the card its
+        captured graph and its copy of the dataset, is kept for the next call
+        with the same dataset and ``chunk_steps``; otherwise it is released
+        before the next one is built.
+        """
+        images = getattr(self.dataset, "images", None)
+        if images is None:
+            raise ValueError("the device-resident mode needs a memory-resident dataset "
+                             "(ArrayDataset; ShardedArrayDataset.materialize() makes one)")
+        self._fetch_warmed = False
+        self._write_run_manifest()
+        bs = self.hparams.global_batch_size
+        self._steps_per_epoch = max(self.dataset.num_examples // bs, 1)
+        runner = self.chunk_runner
+        if runner is not None and runner.reusable(images, chunk_steps, self.blur_controller,
+                                                  self.adaptive_controller):
+            if runner.adaptive is not None:
+                runner.load_adaptive(self.ada_state)
+        else:
+            # Released first, so the card never holds two copies of the dataset.
+            runner = self.chunk_runner = None
+            runner = self.chunk_runner = ChunkRunner(
+                self.gan, self.hparams, self.state, images, chunk_steps, seed=self.cfg.seed,
+                blur_controller=self.blur_controller,
+                adaptive_controller=self.adaptive_controller, adaptive_state=self.ada_state)
+        self._throughput = (time.time(), self.samples_seen)
+
+        def interrupt_save():
+            print("[trainer] interrupted - saving checkpoint")
+            self.ckpt.save(self.samples_seen, self.state, self._aux_dict())
+
+        chunks_done = 0
+        with save_on_interrupt(interrupt_save, defer=True) as check_interrupt:
+            while self.samples_seen < total_examples and not self._stop:
+                check_interrupt()
+                if max_chunks is not None and chunks_done >= max_chunks:
+                    break
+                t0 = time.perf_counter()
+                n0, img0 = self.state.n_batches, self.state.n_img
+                idx = chunk_indices(self.dataset.num_examples, bs, chunk_steps, n0,
+                                    self.cfg.seed)
+                host, ready = _copy_to_host(runner.run(idx, n0))
+                packed = self._fetch(host, ready, "chunk-metrics fetch", steps=chunk_steps)
+                seconds = time.perf_counter() - t0
+                chunks_done += 1
+                arrs = {k: packed[:, j].astype(np.float64) for j, k in enumerate(runner.names)}
+                executed = chunk_steps
+                if runner.adaptive is not None:
+                    # The host mirror of the controller is set before the hook
+                    # replay, so a checkpoint saved there holds both states of
+                    # the same step.
+                    self.ada_state = runner.adaptive.to_host()
+                    if self.ada_state.stop_training:
+                        # Steps after the stop left the state as it was: count
+                        # only the executed prefix, so the host counters equal
+                        # the frozen device state.
+                        flags = arrs["stop_training"]
+                        executed = int(flags.argmax()) + 1 if flags.any() else chunk_steps
+                self.state.n_batches = n0 + executed
+                self.state.n_img = img0 + executed * bs
+                check_interrupt()  # state and counters agree: a safe point to save
+
+                rate = executed * bs / seconds
+                for i in range(executed):
+                    logs = {k: float(v[i]) for k, v in arrs.items()}
+                    n_batches, n_img = n0 + i + 1, img0 + (i + 1) * bs
+                    self._current_sigma = logs.get("std", 0.0)
+                    self.hooks.after_step(bs, logs)
+                    self._maybe_log_epoch(n_batches, n_img, logs)
+                    self._last_metrics = logs
+                    self.history.append(dict(logs, n_batches=n_batches, n_img=n_img,
+                                             images_per_sec=rate))
+                self._log_progress(self.samples_seen, self.state.n_batches, self._last_metrics,
+                                   f" (chunk of {executed} steps in {seconds:.2f} s)")
+                for feeder in self.metric_feeders:
+                    if feeder.recording:
+                        self._run_feeder_eval(feeder)
+                if runner.adaptive is not None and self.ada_state.stop_training:
+                    print("[trainer] adaptive controller reached min std - stopping")
+                    self._stop = True
+        self.ckpt.save(self.samples_seen, self.state, self._aux_dict())
+        self.logger.flush()
+        return self.state
+
+    @torch.no_grad()
+    def _run_feeder_eval(self, feeder: MetricFeeder) -> None:
+        """Measure a feeder whose hook fired during a chunk's replay: pairs of
+        dataset reals (a shuffle of their own) and fresh samples (latents off
+        the training stream), fed until the feeder's ``num_samples`` are in,
+        as the host loop's feeding would."""
+        bs = self.hparams.global_batch_size
+        n = self.state.n_batches
+        it = self.dataset.batches(bs, seed=self.cfg.seed + _FEEDER_DATA_SEED + n)
+        latent_rng = torch.Generator().manual_seed(
+            step_seed(self.cfg.seed, _FEEDER_LATENT_STEP + n))
+        while feeder.recording:
+            reals = to_unit_range(torch.from_numpy(next(it)).to(self.device))
+            latents = self.gan.sample_latents(bs, latent_rng, "cpu").to(self.device)
+            out = feeder.feed(reals, self.sample_fn(self.state, latents))
+            if out:
+                self.logger.scalars(self.samples_seen, out)
+                print(f"[metrics @ {self.samples_seen}] "
+                      f"{({k: round(v, 4) for k, v in out.items()})}", flush=True)
+
+    def _log_progress(self, n_img: int, n_batches: int, logs: Dict, suffix: str = "") -> None:
+        """A progress line and ``logs["images_per_sec"]`` once 5 s have passed
+        since the last one."""
+        t_last, n_last = self._throughput
+        t_now = time.time()
+        if t_now - t_last <= 5.0:
+            return
+        logs["images_per_sec"] = (n_img - n_last) / (t_now - t_last)
+        self._throughput = (t_now, n_img)
+        print(f"[trainer] {n_img} examples ({n_batches} batches) "
+              f"d_loss={logs['disc_loss']:+.4f} std={logs['std']:.4f} "
+              f"{logs['images_per_sec']:.1f} img/s{suffix}", flush=True)
 
     def _maybe_log_epoch(self, n_batches: int, n_img: int, logs: Dict) -> None:
         """``epoch_*`` scalars at each epoch boundary: the last batch's logs."""

@@ -2,7 +2,15 @@
 
 Modules and optimizers are updated in place; the progress counters are plain
 Python ints (exact at any size, so the JAX package's two-word counter is not
-needed). σ is a step input, never state.
+needed). σ is a step input, never state. Adam is built non-capturable, its
+step counters on the CPU, as ``Trainer.fit`` runs it; the chunked mode
+(``train/fast.py``) switches it to ``capturable`` (:func:`set_capturable`:
+step counters on the card, an update that reads nothing back to the host) so
+the whole train step can be captured in a CUDA graph. The two settings round
+Adam's bias correction differently, so the two modes agree to float32
+rounding, not to the bit. The chunked runner keeps its own device copy of the
+batch counter for σ and the adaptive controller; the ints here stay the
+host's record, advanced per executed step.
 """
 
 from __future__ import annotations
@@ -55,6 +63,23 @@ def make_optimizer(name: str, params, learning_rate: float) -> torch.optim.Optim
         return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7)
     raise NotImplementedError(
         f"optimizer {name!r} is not ported yet (ROADMAP queue 1, step variants)")
+
+
+def set_capturable(opt: torch.optim.Optimizer, capturable: bool) -> None:
+    """Switch ``opt`` to ``capturable`` or back, moving each step counter
+    where the setting keeps it: on its parameter's device if capturable, else
+    on the CPU. A group already so set is left alone. The step counters are
+    new tensors afterwards, so a CUDA graph captured before the switch no
+    longer updates them."""
+    for group in opt.param_groups:
+        if group.get("capturable", False) == capturable:
+            continue
+        group["capturable"] = capturable
+        for p in group["params"]:
+            slots = opt.state.get(p)
+            if slots and "step" in slots:
+                slots["step"] = slots["step"].to(device=p.device if capturable else "cpu",
+                                                 dtype=torch.float32)
 
 
 @dataclass

@@ -20,6 +20,11 @@ Random draws come from ``state.rng`` reseeded from ``(seed, n_batches)``
 every step, in the order ``z_d``, dropout, GP ``alpha``, ``z_g``. A step can
 also take ``z_d``, ``z_g`` and ``alpha`` pinned through ``noise``.
 
+``make_step_body`` is the same step without the reseed and the counters: it
+reads nothing back to the host and keeps no host state, so it can be captured
+in a CUDA graph (``train/fast.py``) with σ as a device tensor. Its caller
+reseeds ``state.rng`` before each call and counts the steps.
+
 ``make_sample_fn`` is the eval-mode generator call behind sample grids and
 evaluation.
 
@@ -56,14 +61,7 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
     opt.zero_grad(set_to_none=True)
 
 
-def make_train_step(gan: GAN, hparams, *, seed: int = 0):
-    """Build ``step(state, reals, sigma, noise=None) -> (metrics, fakes)``.
-
-    ``reals``: the NHWC batch on the device, uint8 or float in [-1, 1].
-    ``sigma``: the blur σ for this step. ``noise``: optional dict with
-    ``z_d``, ``z_g`` (B, latent) and ``alpha`` (B, 1, 1, 1) tensors.
-    ``metrics`` holds 0-d tensors; ``fakes`` are the critic step's NCHW fakes.
-    """
+def _check_default_path(hparams) -> None:
     for name, default in _DEFAULT_PATH:
         value = getattr(hparams, name, default)
         if value != default:
@@ -74,12 +72,19 @@ def make_train_step(gan: GAN, hparams, *, seed: int = 0):
         raise NotImplementedError(
             "the WGAN step without gradient penalty is not ported yet "
             "(ROADMAP queue 1, step variants)")
+
+
+def make_step_body(gan: GAN, hparams):
+    """Build ``body(state, reals, sigma, noise=None) -> (metrics, fakes)``: one
+    step that draws from ``state.rng`` as it stands and leaves the counters
+    alone. ``sigma`` is a float or a 0-d float32 tensor on the device."""
+    _check_default_path(hparams)
     global_bs = float(hparams.global_batch_size)
     gp_coefficient = float(hparams.gp_coefficient)
     e_drift = float(hparams.e_drift)
     reference_grad_scale = bool(hparams.reference_grad_scale)
 
-    def step(state: TrainState, reals: torch.Tensor, sigma,
+    def body(state: TrainState, reals: torch.Tensor, sigma,
              noise: Optional[Dict[str, torch.Tensor]] = None):
         device = reals.device
         if reals.dtype == torch.uint8:
@@ -87,7 +92,7 @@ def make_train_step(gan: GAN, hparams, *, seed: int = 0):
         reals = reals.permute(0, 3, 1, 2).contiguous()
         batch = reals.shape[0]
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=device)
-        rng = state.rng.manual_seed(step_seed(seed, state.n_batches))
+        rng = state.rng
 
         # ---- critic step ----
         z_d = noise["z_d"] if noise else gan.sample_latents(batch, rng, device)
@@ -111,12 +116,31 @@ def make_train_step(gan: GAN, hparams, *, seed: int = 0):
         g_params = list(state.generator.parameters())
         _apply(state.g_opt, g_params, torch.autograd.grad(g_loss, g_params))
 
-        state.n_img += batch
-        state.n_batches += 1
         metrics = {"disc_loss": d_loss, "gen_loss": g_loss, "std": sigma,
                    "fake_scores": fake_scores.mean(), "real_scores": real_scores.mean(),
                    **aux}
         return {k: v.detach() for k, v in metrics.items()}, fakes
+
+    return body
+
+
+def make_train_step(gan: GAN, hparams, *, seed: int = 0):
+    """Build ``step(state, reals, sigma, noise=None) -> (metrics, fakes)``.
+
+    ``reals``: the NHWC batch on the device, uint8 or float in [-1, 1].
+    ``sigma``: the blur σ for this step. ``noise``: optional dict with
+    ``z_d``, ``z_g`` (B, latent) and ``alpha`` (B, 1, 1, 1) tensors.
+    ``metrics`` holds 0-d tensors; ``fakes`` are the critic step's NCHW fakes.
+    """
+    body = make_step_body(gan, hparams)
+
+    def step(state: TrainState, reals: torch.Tensor, sigma,
+             noise: Optional[Dict[str, torch.Tensor]] = None):
+        state.rng.manual_seed(step_seed(seed, state.n_batches))
+        metrics, fakes = body(state, reals, sigma, noise)
+        state.n_img += reals.shape[0]
+        state.n_batches += 1
+        return metrics, fakes
 
     return step
 

@@ -13,7 +13,8 @@ Phases, each of which raises on failure:
    the penalty's double backward) at 28², 64², 128² (192 planes), 256²,
    16x32 and 36x30, then at 192 planes of 128² with band matrices across the σ range
    (the 3-tap floor, σ = 5, the clip at σ = 100), a random dense T and a T
-   with an all-zero row tile and column tile;
+   with an all-zero row tile and column tile, then at MNIST's shapes (64 and
+   32 planes of 28²) at its σ of phase 11 (0.05 and 23.5);
 4. the slice: ``Trainer.fit`` at the full CelebA-128 widths, batch 32, float32,
    σ₀ = 5, on the synthetic corpus, for 12 steps; losses finite, σ from
    ``BlurDecayController``, the kernel launched the same positive number of
@@ -21,7 +22,9 @@ Phases, each of which raises on failure:
 5. one step with the kernel against one step with the plain blur from the same
    weights and draws; then the step's images/s with each, and the kernel's
    time per call against the plain version's and its bound at σ = 5 and
-   σ = 100, for 192 and 96 planes; a profile of a few steps;
+   σ = 100, for 192 and 96 planes; a profile of a few steps; then ``fit`` and
+   the fixed-batch step with Adam as ``fit`` runs it (non-capturable) and as
+   the chunked mode does (capturable), in turns;
 6. the kernel's occupancy;
 7. the full run: a ``Trainer`` with the entry point's SWD and FID feeders at
    small cadences, a checkpoint and a sample grid every 192 examples and
@@ -33,8 +36,29 @@ Phases, each of which raises on failure:
 9. evaluation at the users' protocol: SWD over 1000 pairs, random-conv FID
    and Inception FID (random weights) over 100 pairs, ``Trainer.evaluate``
    over 1000, each against a reference on a small input and as a share of the
-   50,000-example interval; then one JSON line describing the kernel and the
-   result line.
+   50,000-example interval;
+10. the chunked mode: ``Trainer.fit_device_resident`` from phase 4's weights,
+    data stream and seed, 2 chunks of 6 steps, each step a replay of the
+    captured train step: per-step losses equal to those of ``fit`` from the
+    same start with the chunked mode's capturable Adam, both with
+    deterministic cuDNN, and phase 4's first step; σ
+    bit-equal to ``fit``'s and on the schedule; the kernel launched 6 times per
+    replayed step (counted by the
+    profiler: a replay launches nothing from the host), two replays with
+    different seeds drawing different latents and a replay drawing what the
+    eager step draws; then chunked images/s beside phase 4's ``fit`` and phase
+    5's fixed-batch step, the capture's seconds and the device's busy share
+    during a chunk;
+11. MNIST at its published widths, batch 32: ``python -m
+    blurred_gan_tpu_torch.train_mnist --device_resident`` for 3 chunks (its
+    SWD and FID at the first chunk boundary), 2 chunks of 25 against 50 steps
+    of ``fit`` (capturable Adam, deterministic cuDNN: every step's losses and
+    σ), chunked against ``fit`` images/s, an adaptive chunked run whose
+    controller stops inside a chunk against the run that stopped there, and
+    the kernel's time at 28² (calls replayed from a CUDA graph, so the host's
+    launch time is not counted) against its plain version's output, beside its
+    bound;
+    then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
 printed there on failure, and the exit code is then non-zero.
@@ -77,6 +101,16 @@ FULL_EVERY, FULL_SWD_SAMPLES, FULL_FID_SAMPLES, FULL_SUMMARIES, FULL_KEEP = 192,
 # Phase 9: the entry point's protocol, and its interval in examples.
 EVAL_SWD, EVAL_FID, EVAL_INTERVAL = 1000, 100, 50_000
 METRIC_TOL = dict(rtol=1e-3, atol=1e-3)  # a metric on the card vs on the CPU
+# Phase 10: chunks of the comparison with phase 4, then of the timed run.
+CHUNK, TIMED_CHUNK, TIMED_CHUNKS = 6, 25, 4
+PARAM_TOL = dict(rtol=5e-4, atol=5e-5)  # chunked vs host-loop state (tests/test_fast.py)
+# Phase 11: MNIST steps, chunk and chunks; its σ at the timings (the 3-tap
+# floor of --initial_blur_std 0.05, and the adaptive controller's σ₀).
+MNIST_RES, MNIST_FIT_STEPS, MNIST_CHUNK, MNIST_CHUNKS = 28, 200, 100, 4
+MNIST_SIGMAS = (0.05, 23.5)
+MNIST_CMP_CHUNK, MNIST_CMP_CHUNKS = 25, 2  # chunked against fit, step by step
+# Phase 5e: fit's steps per run, and the fixed-batch step's.
+ADAM_FIT_STEPS, ADAM_STEPS = 24, 10
 
 
 def log(msg: str) -> None:
@@ -127,6 +161,25 @@ def count_step_launches(blur_cuda, trainer):
     return per_step
 
 
+def adam_steps(step, capturable: bool):
+    """``step`` with both Adams switched to ``capturable`` (or back) first."""
+    from blurred_gan_tpu_torch.train.state import set_capturable
+
+    def run(state, *a, **k):
+        set_capturable(state.g_opt, capturable)
+        set_capturable(state.d_opt, capturable)
+        return step(state, *a, **k)
+    return run
+
+
+def capturable_adam(trainer):
+    """The trainer, its eager steps run with capturable Adam: the chunked
+    mode's arithmetic (``fit`` itself runs Adam non-capturable, which rounds
+    the bias correction differently), so ``fit`` computes what a replay does."""
+    trainer.step_fn = adam_steps(trainer.step_fn, True)
+    return trainer
+
+
 def check_history(trainer, history, what: str) -> None:
     if len(history) != STEPS:
         raise RuntimeError(f"{what}: fit took {len(history)} steps, not {STEPS}")
@@ -168,6 +221,13 @@ def kernel_cases(blur_matrix, device):
     zero_tile[32:64, :] = 0   # an empty row tile of T_h
     zero_tile[:, 64:96] = 0   # an empty column tile of T_w
     cases.append((f"{p}x{RES}x{RES} zero-tile T", planes(), zero_tile, zero_tile))
+    # MNIST b32: the critic on cat([fakes, reals]) and the other five calls.
+    for sigma in MNIST_SIGMAS:
+        t = blur_matrix(sigma, MNIST_RES, device=device)
+        for p in (2 * BATCH, BATCH):
+            cases.append((f"{p}x{MNIST_RES}x{MNIST_RES} sigma {sigma}",
+                          torch.randn(p, MNIST_RES, MNIST_RES, device=device, generator=gen),
+                          t, t))
     return cases
 
 
@@ -265,6 +325,36 @@ def step_ab(workdir, reals, card):
     return trainers["cuda"], statistics.mean(rates["cuda"])
 
 
+def adam_ab(trainer, reals, total, card):
+    """Phase 5e: ``Trainer.fit`` (median img/s of each run's steps 3 on) and
+    the fixed-batch step, each with Adam non-capturable (``fit``'s setting)
+    and capturable (the chunked mode's), in turns."""
+    base = trainer.step_fn
+    fit_rates = {False: [], True: []}
+    step_rates = {False: [], True: []}
+    for cap in (False, True, True, False):
+        trainer.step_fn = adam_steps(base, cap)
+        trainer.fit(total_examples=total, max_steps=ADAM_FIT_STEPS)
+        fit_rates[cap].append(statistics.median(
+            h["images_per_sec"] for h in list(trainer.history)[-ADAM_FIT_STEPS + 2:]))
+    for cap in (False, True, True, False):
+        step = adam_steps(base, cap)
+        step(trainer.state, reals, SIGMA0)  # the switch, outside the timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ADAM_STEPS):
+            step(trainer.state, reals, SIGMA0)
+        torch.cuda.synchronize()
+        step_rates[cap].append(ADAM_STEPS * reals.shape[0] / (time.perf_counter() - t0))
+    trainer.step_fn = base
+    for cap, name in ((False, "non-capturable (fit's)"), (True, "capturable (chunked's)")):
+        log(f"[adam A/B] CelebA-128 b{BATCH} f32, Adam {name}: fit "
+            f"{statistics.mean(fit_rates[cap]):.1f} img/s (runs "
+            f"{', '.join(f'{r:.1f}' for r in fit_rates[cap])}), fixed-batch step "
+            f"{statistics.mean(step_rates[cap]):.1f} img/s (runs "
+            f"{', '.join(f'{r:.1f}' for r in step_rates[cap])}) on {card}")
+
+
 def blur_bound(planes, t_h, t_w):
     """(bound in ms, "bytes" or "operations") of one blur call on these inputs:
     each input read once and the output written once, over the memory rate;
@@ -307,6 +397,56 @@ def time_blur(blur_cuda, blur_matrix, device, planes, sigma, card, n=200):
         f"{ms['plain'] / ms['cuda']:.2f}x the plain version's speed on {card}")
     return {"planes": planes, "sigma": sigma, "ms": ms["cuda"], "plain_ms": ms["plain"],
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_blur_graphed(blur_cuda, blur_matrix, device, planes, res, sigma, card, calls=50,
+                      replays=4):
+    """Phase 11: ms per blur call at a small plane, kernel and plain, each
+    timed as ``calls`` calls captured in a CUDA graph and replayed, so that
+    the host's launch time (tens of µs a call from Python, more than the
+    device's work at 28²) is not counted; in turns; and the call's bound."""
+    x = torch.randn(planes, res, res, device=device)
+    t = blur_matrix(sigma, res, device=device)
+    fns = {"cuda": blur_cuda.blur_planes_forward, "plain": blur_cuda.blur_planes_reference}
+    torch.testing.assert_close(
+        fns["cuda"](x, t, t), fns["plain"](x, t, t), **FWD_TOL,
+        msg=lambda m: f"{planes}x{res}x{res} sigma {sigma}, kernel vs plain: {m}")
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn(x, t, t)
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(calls):
+                fn(x, t, t)
+
+    def per_call(name):
+        graphs[name].replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graphs[name].replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (calls * replays)
+
+    runs = {"cuda": [], "plain": []}
+    for name in ("plain", "cuda", "cuda", "plain"):
+        runs[name].append(per_call(name))
+    ms = {k: min(v) for k, v in runs.items()}
+    bound_ms, bound_by = blur_bound(planes, t, t)
+    log(f"[blur] {planes}x{res}x{res} sigma {sigma}, {calls} calls in a CUDA graph: kernel "
+        f"{ms['cuda'] * 1e3:.2f} us/call (runs {', '.join(f'{v * 1e3:.2f}' for v in runs['cuda'])}), "
+        f"plain {ms['plain'] * 1e3:.2f} us/call (runs "
+        f"{', '.join(f'{v * 1e3:.2f}' for v in runs['plain'])}), bound {bound_ms * 1e3:.3f} us by "
+        f"{bound_by}: kernel at {100 * bound_ms / ms['cuda']:.1f}% of its bound, "
+        f"{ms['plain'] / ms['cuda']:.2f}x the plain version's speed on {card}")
+    return {"planes": planes, "res": res, "sigma": sigma, "ms": ms["cuda"],
+            "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def profile_steps(trainer, reals, card, n=3):
@@ -606,6 +746,307 @@ def run_eval(trainer, step_rate, card):
     non_jax_check()
 
 
+def blur_kernel_rows(prof):
+    """(launches, device µs) of the blur kernel in a profile."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "blur_planes" in e.key]
+    return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
+
+
+def profile_chunk(trainer, card, what):
+    """One more chunk of the trainer's runner under torch.profiler: the blur
+    kernel's launches per replayed step, and the device's busy share (kernel
+    time over wall time). Trains the state on: use it last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blurred_gan_tpu_torch.train.fast import chunk_indices
+
+    runner = trainer.chunk_runner
+    n = trainer.state.n_batches
+    idx = chunk_indices(trainer.dataset.num_examples, trainer.hparams.global_batch_size,
+                        runner.chunk_steps, n, trainer.cfg.seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run(idx, n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches, blur_us = blur_kernel_rows(prof)
+    k = runner.chunk_steps
+    if busy == 0:
+        raise RuntimeError(f"{what}: the profiler saw no device time in a chunk")
+    if launches % k:
+        raise RuntimeError(f"{what}: {launches} blur launches in {k} replayed steps")
+    log(f"[chunked] {what}, profiled chunk of {k} replayed steps: wall "
+        f"{wall_us / k / 1e3:.2f} ms/step, device busy {busy / k / 1e3:.2f} ms/step "
+        f"({100 * busy / wall_us:.1f}% of wall), blur_planes {launches // k} launches and "
+        f"{blur_us / k:.1f} us per step on {card}")
+    return launches // k, busy / wall_us
+
+
+def chunk_rates(history, chunk_steps):
+    """Images/s of each chunk (every step of a chunk logs its chunk's rate)."""
+    return [h["images_per_sec"] for h in list(history)[chunk_steps - 1::chunk_steps]]
+
+
+def check_draws(trainer):
+    """Replays from one state: different seeds draw different latents (the
+    critic step's fakes differ), the same seed the same ones, and a replay
+    draws what the eager step draws for its seed. Restores the state."""
+    from blurred_gan_tpu_torch.train.fast import state_tensors
+    from blurred_gan_tpu_torch.train.step import make_step_body
+
+    runner = trainer.chunk_runner
+    tensors = state_tensors(trainer.state) + [runner.n_batches]
+    with torch.no_grad():
+        saved = [t.clone() for t in tensors]
+
+    @torch.no_grad()
+    def rewind():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+        runner.row.zero_()
+
+    fakes = []
+    for seed in (11, 12, 11):
+        rewind()
+        trainer.state.rng.manual_seed(seed)
+        runner.graph.replay()
+        fakes.append(runner.fakes.clone())
+    rewind()
+    trainer.state.rng.manual_seed(11)
+    _, eager = make_step_body(trainer.gan, trainer.hparams)(
+        trainer.state, runner.data.index_select(0, runner.idx[0]), SIGMA0)
+    rewind()
+    torch.cuda.synchronize()
+    if torch.allclose(fakes[0], fakes[1]):
+        raise RuntimeError("two replays with different seeds drew the same latents")
+    if not torch.equal(fakes[0], fakes[2]):
+        raise RuntimeError("two replays with the same seed drew different latents")
+    torch.testing.assert_close(eager, fakes[0], rtol=1e-5, atol=1e-6,
+                               msg=lambda m: f"replay vs eager step, same seed: {m}")
+    return float((eager - fakes[0]).abs().max()), float((fakes[0] - fakes[1]).abs().max())
+
+
+def relative_diffs(want, got):
+    """Per step, the largest relative difference over the losses and scores."""
+    keys = ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores", "real_scores")
+    return [max(abs(b[k] - a[k]) / max(abs(a[k]), 1e-12) for k in keys)
+            for a, b in zip(want, got)]
+
+
+def losses_close(a, b) -> bool:
+    return all(math.isclose(b[k], a[k], rel_tol=STEP_TOL["rtol"], abs_tol=STEP_TOL["atol"])
+               for k in ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores",
+                         "real_scores"))
+
+
+def run_chunked(blur_cuda, workdir, slice_history, slice_rate, step_rate, card):
+    """Phase 10: the chunked mode against the host loop, then its numbers."""
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    def trainer(name):
+        return build_trainer(smoke_args(os.path.join(workdir, name), sample_grid_every=0,
+                                        checkpoint_every=0, save_image_summaries_interval=0),
+                             feeders=[])
+
+    # cuDNN's default backward-filter algorithms sum with atomics, and Adam
+    # turns such last-bit differences into whole steps, so two runs of the same
+    # training part within a few steps. The chunked run and its `fit` reference
+    # (phase 4's weights, stream and seed) run with deterministic algorithms.
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, total = trainer("chunked_ref")
+        capturable_adam(ref).fit(total_examples=total, max_steps=STEPS)
+        chunked, _ = trainer("chunked")
+        blur_cuda.launch_count = 0
+        chunked.fit_device_resident(total_examples=total, chunk_steps=CHUNK,
+                                    max_chunks=STEPS // CHUNK)
+        torch.cuda.synchronize()
+        host_launches = blur_cuda.launch_count
+    finally:
+        torch.backends.cudnn.deterministic = False
+    runner = chunked.chunk_runner
+    if runner.graph is None:
+        raise RuntimeError("phase 10: the chunked run captured no CUDA graph")
+    if host_launches == 0:
+        raise RuntimeError("phase 10: the blur kernel was never launched")
+    history, want = list(chunked.history), list(ref.history)
+    check_history(chunked, history, "phase 10")
+    for n, (a, b) in enumerate(zip(want, history)):
+        if not losses_close(a, b):
+            raise RuntimeError(f"phase 10, step {n + 1}: chunked {b} vs fit {a}")
+        if a["std"] != b["std"]:
+            raise RuntimeError(f"phase 10, step {n + 1}: sigma {b['std']!r} vs fit {a['std']!r}")
+    # Phase 4 ran with cuDNN's default algorithms and non-capturable Adam: its
+    # first step must agree, the later ones part as two default-algorithm
+    # runs do (`fit` again).
+    drift = relative_diffs(slice_history, history)
+    if not losses_close(slice_history[0], history[0]):
+        raise RuntimeError(f"phase 10, step 1: chunked {history[0]} vs phase 4 {slice_history[0]}")
+    again, _ = trainer("fit_again")
+    again.fit(total_examples=total, max_steps=STEPS)
+    eager_drift = relative_diffs(slice_history, list(again.history))
+    del again
+    replay_err, seed_diff = check_draws(chunked)
+    non_jax_check()
+    log(f"[chunked] {STEPS} steps of fit_device_resident ({STEPS // CHUNK} chunks of {CHUNK}), "
+        f"CelebA-128 full width b{BATCH} f32, deterministic cuDNN: losses equal to fit's from "
+        f"the same weights, stream and seed (largest relative difference per step "
+        f"{' '.join(f'{d:.1e}' for d in relative_diffs(want, history))}; fit with the "
+        f"chunked mode's capturable Adam), sigma bit-equal; "
+        f"against phase 4 (default cuDNN) {' '.join(f'{d:.1e}' for d in drift)}, as a second "
+        f"default-cuDNN fit is ({' '.join(f'{d:.1e}' for d in eager_drift)}); capture "
+        f"{runner.capture_seconds:.2f} s; blur launches from the host {host_launches} (warm-up "
+        f"and capture only); replay vs eager step, same seed: fakes max |diff| "
+        f"{replay_err:.2e}; seeds 11 vs 12: max |diff| {seed_diff:.3f} on {card}")
+    del ref, runner  # the next call releases the runner before it builds one
+
+    chunked.fit_device_resident(total_examples=total, chunk_steps=TIMED_CHUNK,
+                                max_chunks=TIMED_CHUNKS)
+    rates = chunk_rates(list(chunked.history)[STEPS:], TIMED_CHUNK)
+    chunked_rate = statistics.median(rates[1:])
+    per_step, busy = profile_chunk(chunked, card, "CelebA-128 b32")
+    if per_step != 6:
+        raise RuntimeError(f"phase 10: {per_step} blur launches per replayed step, not 6")
+    log(f"[chunked] CelebA-128 b{BATCH} f32: chunked {chunked_rate:.1f} img/s (median of chunks "
+        f"2-{TIMED_CHUNKS} of {TIMED_CHUNK} steps; chunks {', '.join(f'{r:.1f}' for r in rates)}, "
+        f"the first with its capture of {chunked.chunk_runner.capture_seconds:.2f} s); fit "
+        f"{slice_rate:.1f} img/s (phase 4), fixed-batch eager step {step_rate:.1f} img/s "
+        f"(phase 5); device busy {100 * busy:.1f}% of a chunk's wall time on {card}")
+    return host_launches
+
+
+def run_mnist(blur_cuda, blur_matrix, device, workdir, card):
+    """Phase 11: MNIST through its entry point, chunked against fit, the stop
+    freeze on the card, and the kernel at 28²."""
+    import numpy as np
+
+    from blurred_gan_tpu_torch.data.pipeline import load_mnist
+    from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController
+    from blurred_gan_tpu_torch.train_mnist import build_trainer, parse_args
+
+    dataset = load_mnist()  # the synthetic corpus without a local mnist.npz
+    npz = os.path.join(workdir, "mnist.npz")
+    np.savez(npz, x_train=dataset.images[..., 0])
+
+    def argv(name, *extra):
+        return ["--mnist_path", npz, "--batch_size", str(BATCH), "--seed", "0", "--log_dir",
+                os.path.join(workdir, name), *extra]
+
+    max_steps = 3 * MNIST_CHUNK // 2
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blurred_gan_tpu_torch.train_mnist", "--device_resident",
+         "--chunk_steps", str(MNIST_CHUNK // 2), "--max_steps", str(max_steps),
+         *argv("mnist_entry")],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
+        timeout=600)
+    entry_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_mnist --device_resident failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(workdir, "mnist_entry", "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    swd = [r for r in events if "swd/SWDx1e3_avg" in r]
+    fid = [r for r in events if "fid" in r]
+    losses = [r["batch_disc_loss"] for r in events if "batch_disc_loss" in r]
+    if not (swd and fid and losses) or not all(
+            math.isfinite(v) for v in losses + [swd[0]["swd/SWDx1e3_avg"], fid[0]["fid"]]):
+        raise RuntimeError(f"train_mnist: {len(swd)} SWD, {len(fid)} FID, {len(losses)} loss "
+                           f"records: {proc.stdout[-2000:]}")
+    ckpts = sorted(os.listdir(os.path.join(workdir, "mnist_entry", "checkpoints")))
+    if f"{max_steps * BATCH}.pt" not in ckpts:
+        raise RuntimeError(f"train_mnist: checkpoints {ckpts}, want {max_steps * BATCH}.pt")
+    log(f"[mnist] python -m blurred_gan_tpu_torch.train_mnist --device_resident: "
+        f"{max_steps} steps in 3 chunks, {len(losses)} loss records (last d_loss "
+        f"{losses[-1]:+.4f}), SWD avg {swd[0]['swd/SWDx1e3_avg']:.3f} and FID "
+        f"{fid[0]['fid']:.3f} at {swd[0]['step']} examples, checkpoint {max_steps * BATCH}.pt; "
+        f"{entry_s:.1f} s with start-up, feeders and build on {card}")
+
+    # Chunked against fit from the same weights, data and draws, step by
+    # step: deterministic cuDNN and the same Adam arithmetic (phase 10).
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = capturable_adam(build_trainer(parse_args(argv("mnist_cmp_fit")), feeders=[])[0])
+        ref.fit(total_examples=10 ** 9, max_steps=MNIST_CMP_CHUNK * MNIST_CMP_CHUNKS)
+        cmp, _ = build_trainer(parse_args(argv("mnist_cmp_chunked")), feeders=[])
+        cmp.fit_device_resident(total_examples=10 ** 9, chunk_steps=MNIST_CMP_CHUNK,
+                                max_chunks=MNIST_CMP_CHUNKS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want, got = list(ref.history), list(cmp.history)
+    if len(want) != len(got) or len(got) != MNIST_CMP_CHUNK * MNIST_CMP_CHUNKS:
+        raise RuntimeError(f"phase 11: {len(got)} chunked steps, {len(want)} of fit")
+    for n, (a, b) in enumerate(zip(want, got)):
+        if not losses_close(a, b):
+            raise RuntimeError(f"phase 11, step {n + 1}: chunked {b} vs fit {a}")
+        if a["std"] != b["std"]:
+            raise RuntimeError(f"phase 11, step {n + 1}: sigma {b['std']!r} vs fit {a['std']!r}")
+    diffs = relative_diffs(want, got)
+    log(f"[mnist] {len(got)} steps of fit_device_resident ({MNIST_CMP_CHUNKS} chunks of "
+        f"{MNIST_CMP_CHUNK}) against fit (capturable Adam), deterministic cuDNN: every "
+        f"step's losses within rtol {STEP_TOL['rtol']} (largest relative difference "
+        f"{max(diffs):.1e}, {sum(d == 0 for d in diffs)} steps bit-equal), sigma bit-equal")
+    del ref, cmp
+
+    fit, _ = build_trainer(parse_args(argv("mnist_fit", "--max_steps", str(MNIST_FIT_STEPS))),
+                           feeders=[])
+    fit.fit(total_examples=10 ** 9, max_steps=MNIST_FIT_STEPS)
+    fit_rate = statistics.median(h["images_per_sec"] for h in list(fit.history)[2:])
+    chunked, _ = build_trainer(parse_args(argv("mnist_chunked")), feeders=[])
+    blur_cuda.launch_count = 0
+    chunked.fit_device_resident(total_examples=10 ** 9, chunk_steps=MNIST_CHUNK,
+                                max_chunks=MNIST_CHUNKS)
+    torch.cuda.synchronize()
+    if blur_cuda.launch_count == 0 or chunked.chunk_runner.graph is None:
+        raise RuntimeError("phase 11: the chunked MNIST run captured no graph or no kernel")
+    rates = chunk_rates(chunked.history, MNIST_CHUNK)
+    per_step, busy = profile_chunk(chunked, card, "MNIST-28 b32")
+    if per_step != 6:
+        raise RuntimeError(f"phase 11: {per_step} blur launches per replayed step, not 6")
+    log(f"[mnist] MNIST-28 b{BATCH} f32: chunked {statistics.median(rates[1:]):.1f} img/s "
+        f"(median of chunks 2-{MNIST_CHUNKS} of {MNIST_CHUNK}; chunks "
+        f"{', '.join(f'{r:.1f}' for r in rates)}, capture "
+        f"{chunked.chunk_runner.capture_seconds:.2f} s), fit {fit_rate:.1f} img/s (median of "
+        f"steps 3-{MNIST_FIT_STEPS}); device busy {100 * busy:.1f}% of a chunk on {card}")
+
+    # The stop freeze inside the graph: a controller that stops at its first
+    # decay, against the host loop run for exactly the steps that executed.
+    def stopping(name):
+        tr, _ = build_trainer(parse_args(argv(name, "--adaptive")), feeders=[])
+        tr.adaptive_controller = AdaptiveBlurController(
+            warmup_n_batches=0, delay_between_modifications=1, max_value=1.0, min_value=0.995)
+        tr.ada_state = tr.adaptive_controller.init()
+        return tr
+
+    frozen = stopping("mnist_stop")
+    frozen.fit_device_resident(total_examples=10 ** 9, chunk_steps=CHUNK, max_chunks=2)
+    n = frozen.state.n_batches
+    if not (frozen.ada_state.stop_training and n == frozen.ada_state.last_modification_batch
+            and n < CHUNK and int(frozen.chunk_runner.n_batches) == n):
+        raise RuntimeError(f"phase 11: stop freeze: {frozen.ada_state}, {n} steps counted, "
+                           f"device counter {int(frozen.chunk_runner.n_batches)}")
+    ref = capturable_adam(stopping("mnist_stop_ref"))
+    ref.fit(total_examples=10 ** 9, max_steps=n)
+    worst = 0.0
+    for m, m2 in ((ref.state.generator, frozen.state.generator),
+                  (ref.state.discriminator, frozen.state.discriminator)):
+        for (k, v), v2 in zip(m.state_dict().items(), m2.state_dict().values()):
+            torch.testing.assert_close(v2, v, **PARAM_TOL,
+                                       msg=lambda msg: f"stop freeze, {k}: {msg}")
+            worst = max(worst, float((v2 - v).abs().max()))
+    log(f"[mnist] stop freeze in the graph: the controller stopped at step {n} of a chunk of "
+        f"{CHUNK}; the state after the chunk equals {n} steps of fit (max |diff| {worst:.2e})")
+
+    timings = [time_blur_graphed(blur_cuda, blur_matrix, device, planes, MNIST_RES, sigma, card)
+               for sigma in MNIST_SIGMAS for planes in (2 * BATCH, BATCH)]
+    non_jax_check()
+    return timings
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
@@ -617,7 +1058,7 @@ def main():
 
     from blurred_gan_tpu_torch.ops import blur_cuda
     from blurred_gan_tpu_torch.ops.blur import blur_matrix
-    from blurred_gan_tpu_torch.train_celeba import set_float32_precision
+    from blurred_gan_tpu_torch.entry import set_float32_precision
 
     set_float32_precision()
     with phase("2 build"):
@@ -646,6 +1087,7 @@ def main():
             timings = [time_blur(blur_cuda, blur_matrix, device, planes, sigma, card)
                        for sigma in (SIGMA0, 100.0) for planes in (2 * BATCH * 3, BATCH * 3)]
             profile_steps(kernel_trainer, reals, card)
+            adam_ab(trainer, reals, 10 ** 9, card)
 
         with phase("6 occupancy"):
             blocks, smem = blur_cuda.occupancy(RES)
@@ -661,6 +1103,11 @@ def main():
             run_resume(full, full_args, workdir, card)
         with phase("9 evaluation"):
             run_eval(full, step_rate, card)
+        del full, kernel_trainer
+        with phase("10 chunked"):
+            run_chunked(blur_cuda, workdir, history, slice_rate, step_rate, card)
+        with phase("11 MNIST"):
+            mnist_timings = run_mnist(blur_cuda, blur_matrix, device, workdir, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -672,7 +1119,7 @@ def main():
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
         # The library call is the plain version itself: two cuBLAS matmuls.
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
-        "planes": headline["planes"], "cases": timings}]}), flush=True)
+        "planes": headline["planes"], "cases": timings + mnist_timings}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -199,3 +199,129 @@ def test_restore_on_the_card_is_exact_and_keeps_adams_step_on_the_cpu(cuda_devic
     want = step(live, reals, 1.5)[0]
     for k, v in want.items():
         torch.testing.assert_close(got[k], v, **STEP, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The chunked mode: the train step captured in a CUDA graph and replayed
+# ---------------------------------------------------------------------------
+
+
+def narrow_trainer(device, log_dir, **kw):
+    from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
+    from blurred_gan_tpu_torch.sched.blur import BlurDecayController
+    from blurred_gan_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    gan = GAN(DCGANGenerator(latent_size=8, init_features=32, blocks=((32, 1), (16, 2), (8, 2))),
+              DCGANDiscriminator(channels=(8, 16), in_channels=3, image_hw=(16, 16)),
+              latent_size=8)
+    hp = BlurredWGANGPHyperParameters(batch_size=4, global_batch_size=4)
+    if "adaptive_controller" not in kw:
+        kw["blur_controller"] = BlurDecayController(640, max_value=1.5)
+    return Trainer(gan, hp, synthetic_dataset((16, 16, 3), num_examples=64), device=device,
+                   trainer_config=TrainerConfig(log_dir=str(log_dir), seed=0,
+                                                image_summaries_interval_batches=0,
+                                                sample_grid_every_n_examples=0,
+                                                checkpoint_every_n_examples=0), **kw)
+
+
+def test_chunked_replay_matches_fit(cuda_device, tmp_path):
+    # 4 steps of fit against 2 chunks of 2 replayed steps, from the same
+    # weights, data and draws (tests/test_fast.py's tolerance).
+    a = narrow_trainer(cuda_device, tmp_path / "fit")
+    a.fit(total_examples=10_000, max_steps=4)
+    b = narrow_trainer(cuda_device, tmp_path / "chunked")
+    b.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=2)
+    assert b.chunk_runner.graph is not None and b.chunk_runner.capture_seconds > 0
+    assert a.state.n_batches == b.state.n_batches == 4
+    for ha, hb in zip(a.history, b.history):
+        assert hb["disc_loss"] == pytest.approx(ha["disc_loss"], rel=1e-3, abs=1e-4)
+        assert hb["std"] == pytest.approx(ha["std"], rel=1e-6)
+    for m, m2 in ((a.state.generator, b.state.generator),
+                  (a.state.discriminator, b.state.discriminator)):
+        for (k, v), v2 in zip(m.state_dict().items(), m2.state_dict().values()):
+            torch.testing.assert_close(v2, v, rtol=5e-4, atol=5e-5, msg=k)
+
+
+def test_replay_draws_follow_the_seed(cuda_device, tmp_path):
+    # Two replays from the same state with different seeds draw different
+    # latents; a replay draws what the eager step draws for the same seed.
+    from blurred_gan_tpu_torch.train.fast import state_tensors
+    from blurred_gan_tpu_torch.train.step import make_step_body
+
+    tr = narrow_trainer(cuda_device, tmp_path)
+    tr.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=1)
+    runner = tr.chunk_runner
+    with torch.no_grad():
+        saved = [t.clone() for t in state_tensors(tr.state)]
+
+    @torch.no_grad()
+    def rewind():
+        for t, v in zip(state_tensors(tr.state), saved):
+            t.copy_(v)
+        runner.row.zero_()
+        runner.n_batches.fill_(2)
+
+    fakes = {}
+    for seed in (11, 12, 11):
+        rewind()
+        tr.state.rng.manual_seed(seed)
+        runner.graph.replay()
+        fakes.setdefault(seed, []).append(runner.fakes.clone())
+    rewind()
+    tr.state.rng.manual_seed(11)
+    reals = runner.data.index_select(0, runner.idx[0])
+    _, eager = make_step_body(tr.gan, tr.hparams)(tr.state, reals, 1.0)
+    assert not torch.allclose(fakes[11][0], fakes[12][0])
+    assert torch.equal(fakes[11][0], fakes[11][1])
+    torch.testing.assert_close(eager, fakes[11][0], rtol=1e-5, atol=1e-6)
+
+
+def test_stop_freeze_inside_the_graph(cuda_device, tmp_path):
+    from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController
+
+    ada = AdaptiveBlurController(warmup_n_batches=0, delay_between_modifications=1,
+                                 max_value=1.0, min_value=0.995)
+    tr = narrow_trainer(cuda_device, tmp_path, adaptive_controller=ada)
+    tr.fit_device_resident(total_examples=10_000, chunk_steps=6, max_chunks=3)
+    assert tr.ada_state.stop_training and tr.chunk_runner.graph is not None
+    assert tr.state.n_batches == tr.ada_state.last_modification_batch <= 2
+    assert int(tr.chunk_runner.n_batches) == tr.state.n_batches
+    # The run that stopped there, step by step.
+    ref = narrow_trainer(cuda_device, tmp_path / "ref", adaptive_controller=ada)
+    ref.fit(total_examples=10_000, max_steps=tr.state.n_batches)
+    for (k, v), v2 in zip(ref.state.discriminator.state_dict().items(),
+                          tr.state.discriminator.state_dict().values()):
+        torch.testing.assert_close(v2, v, rtol=5e-4, atol=5e-5, msg=k)
+
+
+def test_checkpoint_from_the_cpu_resumes_chunked_on_the_card(tmp_path, cuda_device):
+    cpu = narrow_trainer("cpu", tmp_path)
+    cpu.fit(total_examples=10_000, max_steps=2)
+    card = narrow_trainer(cuda_device, tmp_path)
+    assert card.state.n_batches == 2
+    for group in card.state.d_opt.param_groups:
+        assert not group["capturable"]  # fit's setting until the chunked mode runs
+    card.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=1)
+    assert card.state.n_batches == 4
+    for opt in (card.state.g_opt, card.state.d_opt):
+        assert all(group["capturable"] for group in opt.param_groups)
+        assert all(s["step"].device.type == "cuda" for s in opt.state.values())
+    assert all(torch.isfinite(p).all() for p in card.state.discriminator.parameters())
+
+
+def test_runner_keeps_its_graph_until_the_state_moves(cuda_device, tmp_path):
+    # A second call with the same dataset and chunk replays the same graph;
+    # fit in between switches Adam back to non-capturable, which moves its
+    # step counters, so the next call captures anew.
+    tr = narrow_trainer(cuda_device, tmp_path)
+    tr.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=1)
+    runner, graph = tr.chunk_runner, tr.chunk_runner.graph
+    tr.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=1)
+    assert tr.chunk_runner is runner and runner.graph is graph
+    tr.fit(total_examples=10_000, max_steps=1)
+    assert not any(group["capturable"] for group in tr.state.d_opt.param_groups)
+    del runner, graph
+    tr.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=1)
+    assert tr.chunk_runner.graph is not None and tr.state.n_batches == 7
+    assert all(group["capturable"] for group in tr.state.d_opt.param_groups)
+    assert all(torch.isfinite(p).all() for p in tr.state.discriminator.parameters())

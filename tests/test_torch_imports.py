@@ -30,6 +30,8 @@ assert {"blurred_gan_tpu_torch.metrics.fid", "blurred_gan_tpu_torch.metrics.swd"
         "blurred_gan_tpu_torch.train.hooks", "blurred_gan_tpu_torch.utils.config",
         "blurred_gan_tpu_torch.utils.images", "blurred_gan_tpu_torch.utils.logging",
         "blurred_gan_tpu_torch.utils.rundir", "blurred_gan_tpu_torch.utils.watchdog",
+        "blurred_gan_tpu_torch.train.fast", "blurred_gan_tpu_torch.train_mnist",
+        "blurred_gan_tpu_torch.entry",
         } <= set(names), names
 import blurred_gan_tpu_torch.utils.logging as logging_mod
 logging_mod._summary_writer = lambda log_dir: None
