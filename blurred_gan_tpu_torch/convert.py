@@ -12,6 +12,10 @@ jax arrays) and copies them into a ``DCGANGenerator`` or ``DCGANDiscriminator``:
 Flax names its submodules per type in creation order, which is the order the
 port's modules list them in.
 
+``flax_state_to_torch(state, jax_state)`` carries a whole JAX ``TrainState``'s
+weights into the port's ``TrainState``: the generator with its BatchNorm
+statistics, the critic, and ``g_ema`` where the JAX state keeps an average.
+
 For the metrics' feature extractors, given as numpy arrays:
 
 - ``inception_params_to_torch``: the InceptionV3 trunk's npz-layout dict
@@ -23,6 +27,7 @@ For the metrics' feature extractors, given as numpy arrays:
 
 from __future__ import annotations
 
+import copy
 from collections import Counter
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -91,6 +96,21 @@ def flax_to_torch(module, params: Mapping, batch_stats: Optional[Mapping] = None
         _copy(module.dense.bias, params["Dense_0"]["bias"], "Dense_0.bias")
         return module
     raise TypeError(f"no flax mapping for {type(module).__name__}")
+
+
+def flax_state_to_torch(state, jax_state):
+    """Copy ``jax_state``'s ``g_params``, ``g_stats``, ``d_params`` and (if it
+    has one) ``g_ema`` into the port's ``state`` in place; returns ``state``.
+    The average lands in ``state.g_ema`` in ``generator.parameters()`` order,
+    on the generator's device; a JAX state without one leaves ``g_ema``
+    alone."""
+    flax_to_torch(state.generator, jax_state.g_params, jax_state.g_stats)
+    flax_to_torch(state.discriminator, jax_state.d_params)
+    if jax_state.g_ema:
+        ema = copy.deepcopy(state.generator)
+        flax_to_torch(ema, jax_state.g_ema)
+        state.g_ema = [p.detach().clone() for p in ema.parameters()]
+    return state
 
 
 def _tensor(arr, device=None) -> torch.Tensor:

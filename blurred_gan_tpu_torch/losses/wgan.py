@@ -7,6 +7,9 @@
   it, and keeps ``+1e-12`` inside the square root.
 - The drift term is a batch mean; ``reference_grad_scale`` multiplies the
   loss by the batch size.
+- ``include_gp=False`` (the skipped steps of lazy regularisation) builds the
+  loss without the penalty: no interpolates, no double backward, no draw of
+  ``α``; ``gp_term`` is then a 0-d zero.
 """
 
 from __future__ import annotations
@@ -54,11 +57,15 @@ def gradient_penalty(critic_fn: Callable, reals, fakes,
 def wgangp_discriminator_loss(critic_fn_eval: Callable, reals, fakes, real_scores,
                               fake_scores, generator: Optional[torch.Generator] = None,
                               *, global_batch_size, gp_coefficient=10.0,
-                              e_drift=1e-4, alpha=None, reference_grad_scale=False):
+                              e_drift=1e-4, alpha=None, reference_grad_scale=False,
+                              include_gp=True):
     """Full WGAN-GP critic loss. Returns ``(loss, aux dict)``."""
     base = wgan_discriminator_loss(real_scores, fake_scores, global_batch_size)
-    gp_term = gp_coefficient * gradient_penalty(critic_fn_eval, reals, fakes,
-                                                generator, alpha=alpha)
+    if include_gp:
+        gp_term = gp_coefficient * gradient_penalty(critic_fn_eval, reals, fakes,
+                                                    generator, alpha=alpha)
+    else:
+        gp_term = torch.zeros((), dtype=base.dtype, device=base.device)
     norm_term = e_drift * torch.mean(torch.abs(fake_scores) + torch.abs(real_scores))
     loss = base + gp_term + norm_term
     if reference_grad_scale:

@@ -5,16 +5,25 @@ keyed by examples seen. It holds:
 
 - both modules' ``state_dict`` (the generator's BatchNorm running statistics
   included);
-- both Adam ``state_dict``;
+- both optimizers' ``state_dict``;
+- ``g_ema``, the generator's average, when the run keeps one;
 - the ``n_img`` and ``n_batches`` counters;
 - ``aux``, a JSON string of host-side state (the adaptive σ controller).
 
 Only tensors, numbers, strings, tuples and dicts, so ``torch.load(...,
 weights_only=True)`` reads it. A save writes a temporary file and then
 ``os.replace``\\ s it, so an interrupted save never leaves half a checkpoint.
-A restore keeps the live optimizer's ``capturable`` setting (see
-:func:`_load_optimizer`), so checkpoints interchange between the CPU and the
-card and between ``Trainer.fit`` and ``Trainer.fit_device_resident``.
+A restore loads the optimizers' moments and counters and keeps the live
+optimizers' hyperparameters (learning rate, betas, eps, decay) and their
+``capturable`` setting (see :func:`_load_optimizer`): a run resumed under
+another ``--learning_rate`` or ``--g_learning_rate`` runs at the new rate, as
+the JAX package's does (its optax state holds no rate), and checkpoints
+interchange between the CPU and the card and between ``Trainer.fit`` and
+``Trainer.fit_device_resident``. A checkpoint of one optimizer restored into
+another raises. As the JAX package does, a checkpoint without ``g_ema``
+restored into a state with one seeds the average from the restored generator,
+and one with ``g_ema`` restored into a state without one gives the state the
+saved average.
 Retention: the ``max_to_keep`` latest, plus every checkpoint saved at least
 ``keep_time_interval_hours`` after the previous one so kept (file times, so
 the rule holds across restarts). The saves are synchronous. The step draws
@@ -71,6 +80,8 @@ class CheckpointManager:
             "n_batches": int(state.n_batches),
             "aux": json.dumps(aux or {}),
         }
+        if state.g_ema is not None:
+            payload["g_ema"] = list(state.g_ema)
         path = self._path(int(samples_seen))
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -101,23 +112,61 @@ class CheckpointManager:
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
         state.generator.load_state_dict(payload["generator"])
         state.discriminator.load_state_dict(payload["discriminator"])
-        _load_optimizer(state.g_opt, payload["g_opt"])
-        _load_optimizer(state.d_opt, payload["d_opt"])
+        for name in ("g_opt", "d_opt"):
+            _load_optimizer(getattr(state, name), payload[name], name)
+        _restore_ema(state, payload.get("g_ema"))
         state.n_img = payload["n_img"]
         state.n_batches = payload["n_batches"]
         return json.loads(payload["aux"]), step
 
 
-def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
-    """``opt.load_state_dict(saved)``, keeping ``opt``'s own ``capturable``
-    setting and its step counters where that setting puts them
+@torch.no_grad()
+def _restore_ema(state, saved: Optional[List[torch.Tensor]]) -> None:
+    """Load the saved average into ``state.g_ema`` in place; seed it from the
+    restored generator if the checkpoint has none; take the saved one if the
+    state keeps none."""
+    params = list(state.generator.parameters())
+    if state.g_ema is None:
+        if saved is not None:
+            state.g_ema = [t.to(p.device) for t, p in zip(saved, params)]
+        return
+    if saved is None:
+        print("[checkpoint] the checkpoint has no generator EMA - seeded g_ema from the "
+              "restored generator weights")
+        saved = params
+    for t, v in zip(state.g_ema, saved):
+        t.copy_(v)
+
+
+def _kind(group: Dict) -> str:
+    """The optimizer a ``param_group`` belongs to, by the hyperparameter
+    only it has: Adam's betas, SGD's momentum, RMSprop's decay."""
+    for key, kind in (("betas", "Adam"), ("momentum", "SGD"), ("decay", "RMSprop")):
+        if key in group:
+            return kind
+    return "unknown"
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict, name: str = "optimizer") -> None:
+    """Load the moments and counters of ``saved`` into ``opt``, keeping its
+    own hyperparameters and ``capturable`` setting, with its step counters
+    where that setting puts them
     (:func:`~blurred_gan_tpu_torch.train.state.set_capturable`).
-    ``load_state_dict`` would take both from the checkpoint, so a checkpoint
-    written by the chunked mode (capturable Adam) would not restore into a CPU
-    run or ``fit``, nor one written by ``fit`` into the chunked mode."""
+    ``load_state_dict`` would take both from the checkpoint: an old learning
+    rate, and capturable Adam from a checkpoint of the chunked mode in a CPU
+    run or ``fit`` (or the reverse). ``saved`` must come from the same kind
+    of optimizer."""
+    saved_kind, kind = _kind(saved["param_groups"][0]), _kind(opt.param_groups[0])
+    if saved_kind != kind:
+        raise ValueError(f"{name}: the checkpoint holds {saved_kind} state, the run "
+                         f"uses {kind}")
     capturable = any(group.get("capturable", False) for group in opt.param_groups)
+    live = [{k: v for k, v in group.items() if k not in ("params", "capturable")}
+            for group in opt.param_groups]
     opt.load_state_dict(saved)
     set_capturable(opt, capturable)
+    for group, hyper in zip(opt.param_groups, live):
+        group.update(hyper)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,8 @@
 
 Copied rather than imported because importing the JAX package's ``train``
 subpackage loads jax. Same classes, fields and defaults; flags and JSON
-sidecars through the mixins of ``utils.config``. The step accepts the default
-values of the fields the port does not implement yet and raises on any other
-(``train/step.py``).
+sidecars through the mixins of ``utils.config``. Every field is implemented
+(``train/step.py``, ``train/state.py``).
 """
 
 from __future__ import annotations

@@ -8,9 +8,13 @@ per chunk, each gathering its batch from the store by a ``(K, B)`` index
 matrix copied to the card once per chunk.
 
 On a CUDA device the whole train step (gather, σ, critic step with the
-penalty's double backward, both Adam updates, the σ controller, the metrics
-row) is captured once as a CUDA graph and each step of a chunk replays it: the
-host only reseeds the step's generator and launches the graph. On the CPU
+penalty's double backward, both optimizer updates, the generator's average,
+the σ controller, the metrics row) is captured as a CUDA graph and each step
+of a chunk replays it: the host only reseeds the step's generator and launches
+the graph. A configuration whose steps differ by phase (lazy GP,
+``d_steps_per_g_step``; ``train/step.py``) has one graph per phase it reaches,
+at most four, each in its own memory pool; the host picks each step's graph
+from its counter, which it knows for every step of a chunk. On the CPU
 (tests) the same per-step function runs eagerly. Nothing falls back: on the
 card a capture that fails raises.
 
@@ -30,13 +34,13 @@ columns in ``sorted(metrics)`` order, which the host fetches once per chunk.
 With the adaptive controller, once ``stop_training`` is raised inside a chunk
 the chunk's remaining steps leave the state as it is (the host loop would
 have stopped launching them, but the host has queued them before it can see
-the flag): each step commits its parameters, BatchNorm statistics, Adam state,
-controller state and counter through ``torch.where(stop, before, after)`` and
-writes a row of zeros.
+the flag): each step commits its parameters, BatchNorm statistics, optimizer
+state, generator average, controller state and counter through
+``torch.where(stop, before, after)`` and writes a row of zeros.
 
 The step's draws are those of ``Trainer.fit``: before each step the host
 reseeds ``state.rng`` from ``(seed, n_batches)``, and the generator is
-registered with the graph, so a replay draws what the eager step draws for
+registered with every graph, so a replay draws what the eager step draws for
 the same seed. Before its capture the runner switches both Adams to
 ``capturable`` (``train/state.py``), which the capture needs.
 """
@@ -44,7 +48,7 @@ the same seed. Before its capture the runner switches both Adams to
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,10 +56,12 @@ import torch
 from blurred_gan_tpu_torch.sched.blur import (
     AdaptiveBlurController, AdaptiveBlurState, BlurDecayController)
 from blurred_gan_tpu_torch.train.state import GAN, TrainState, set_capturable
-from blurred_gan_tpu_torch.train.step import make_step_body, step_seed
+from blurred_gan_tpu_torch.train.step import (
+    Phase, make_step_body, reachable_phases, step_phase, step_seed)
 
-# Eager steps on a side stream before the capture (PyTorch's CUDA-graph notes:
-# lazy initialisation, cuDNN's algorithm choice and Adam's state happen there).
+# Eager steps of each phase on a side stream before the captures (PyTorch's
+# CUDA-graph notes: lazy initialisation, cuDNN's algorithm choice and the
+# optimizers' state happen there, so that no capture allocates state).
 WARMUP_STEPS = 3
 
 
@@ -143,14 +149,14 @@ def chunk_plan(chunk_steps: int, max_steps: Optional[int]) -> Tuple[int, Optiona
 
 def state_tensors(state: TrainState) -> List[torch.Tensor]:
     """Every tensor a step changes in place: both networks' parameters and
-    buffers and both optimizers' state."""
+    buffers, both optimizers' state and the generator's average."""
     out = []
     for module in (state.generator, state.discriminator):
         out += list(module.parameters()) + list(module.buffers())
     for opt in (state.g_opt, state.d_opt):
         for slots in opt.state.values():
             out += [v for v in slots.values() if isinstance(v, torch.Tensor)]
-    return out
+    return out + list(state.g_ema or ())
 
 
 class ChunkRunner:
@@ -161,10 +167,13 @@ class ChunkRunner:
     batch counter, queues the chunk and returns the ``(K, M)`` metrics buffer
     (columns ``self.names``); the caller advances ``state``'s host counters.
     ``adaptive`` holds the controller's state on the device between chunks.
-    On a CUDA device the first ``run`` captures the graph (``capture_seconds``)
-    and every step replays it; ``fakes`` is the last step's critic-step fakes.
-    The graph writes to the addresses of the state's tensors at its capture:
-    :meth:`reusable` says whether they still hold the state.
+    On a CUDA device the first ``run`` captures a graph for each phase in
+    ``phases`` (``graphs``; ``capture_seconds``; ``capture_reserved``, the
+    bytes the caching allocator held before the warm-up, after it with its
+    cache emptied, and after the captures) and every step replays its
+    phase's; ``fakes`` is the last step's critic-step fakes. The graphs write to the addresses of the state's
+    tensors at their capture, all taken together: :meth:`reusable` says
+    whether they still hold the state.
     """
 
     def __init__(self, gan: GAN, hparams, state: TrainState, images: np.ndarray,
@@ -182,7 +191,9 @@ class ChunkRunner:
         self.blur_controller = blur_controller
         self.adaptive_controller = adaptive_controller
         self.constant_sigma = float(getattr(hparams, "initial_blur_std", 0.0))
+        self.hparams = hparams
         self.body = make_step_body(gan, hparams)
+        self.phases = reachable_phases(hparams)
         self.data = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         batch = hparams.global_batch_size
         self.idx = torch.zeros((chunk_steps, batch), dtype=torch.int64, device=self.device)
@@ -195,9 +206,17 @@ class ChunkRunner:
         self.names: Optional[List[str]] = None
         self.out: Optional[torch.Tensor] = None
         self.fakes: Optional[torch.Tensor] = None
-        self.graph = None
+        self.graphs: Dict[Phase, torch.cuda.CUDAGraph] = {}
+        self._graph_fakes: Dict[Phase, torch.Tensor] = {}
         self.capture_seconds = 0.0
-        self._captured: List[int] = []  # data_ptr of each state tensor at the capture
+        self.capture_reserved: Optional[Tuple[int, int, int]] = None
+        self._captured: List[int] = []  # data_ptr of each state tensor at the captures
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        """The graph of the first phase (the full step, where the run takes
+        one); None before the capture and on the CPU."""
+        return self.graphs.get(self.phases[0])
 
     def reusable(self, images: np.ndarray, chunk_steps: int,
                  blur_controller: Optional[BlurDecayController],
@@ -209,7 +228,7 @@ class ChunkRunner:
         return (images is self.images and chunk_steps == self.chunk_steps
                 and blur_controller is self.blur_controller
                 and adaptive_controller is self.adaptive_controller
-                and (self.graph is None
+                and (not self.graphs
                      or [t.data_ptr() for t in state_tensors(self.state)] == self._captured))
 
     @torch.no_grad()
@@ -225,8 +244,9 @@ class ChunkRunner:
             return decayed_sigma(self.blur_controller, self.n_batches)
         return torch.full((), self.constant_sigma, dtype=torch.float32, device=self.device)
 
-    def _step(self) -> torch.Tensor:
-        """One step, row ``self.row`` of the chunk. Launches only device work."""
+    def _step(self, phase: Phase) -> torch.Tensor:
+        """One step of ``phase``, row ``self.row`` of the chunk. Launches only
+        device work."""
         reals = self.data.index_select(0, self.idx.index_select(0, self.row.reshape(1))[0])
         sigma = self._sigma()
         gated = self.adaptive is not None
@@ -234,7 +254,7 @@ class ChunkRunner:
             with torch.no_grad():
                 frozen = self.adaptive.stop_training.clone()
                 before = {id(t): t.clone() for t in state_tensors(self.state)}
-        metrics, fakes = self.body(self.state, reals, sigma)
+        metrics, fakes = self.body(self.state, reals, sigma, do_gp=phase[0], do_gen=phase[1])
         n_next = self.n_batches + 1
         if gated:
             ada = adaptive_update(self.adaptive_controller, self.adaptive, n_next,
@@ -269,13 +289,16 @@ class ChunkRunner:
         return state_tensors(self.state) + runner + ([self.out] if self.out is not None else [])
 
     def _capture(self) -> None:
-        """Warm the step up on a side stream, capture it, then put back every
-        tensor the warm-up changed (in place: the graph holds their
-        addresses). Optimizer state the warm-up created is zeroed, which is
-        what a fresh Adam state is."""
+        """Warm every phase up on a side stream, capture one graph per phase,
+        then put back every tensor the warm-up changed (in place: the graphs
+        hold their addresses). Optimizer state the warm-up created is zeroed,
+        which is what a fresh Adam or RMSprop state is. Each graph has its own
+        memory pool: a phase's ``fakes`` stay valid while another phase's
+        graph replays."""
         t0 = time.perf_counter()
         set_capturable(self.state.g_opt, True)
         set_capturable(self.state.d_opt, True)
+        reserved = [torch.cuda.memory_reserved(self.device)]
         # Without grad: a clone that tracked grad would keep each parameter's
         # gradient accumulator alive, bound to this (the default) stream, and
         # the captured backward would then have to sync with the default
@@ -287,20 +310,28 @@ class ChunkRunner:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for i in range(WARMUP_STEPS):
-                self.row.zero_()
-                self.state.rng.manual_seed(step_seed(self.seed, n0 + i))
-                self._step()
+                for phase in self.phases:
+                    self.row.zero_()
+                    self.state.rng.manual_seed(step_seed(self.seed, n0 + i))
+                    self._step(phase)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # The step's latents, dropout masks and GP α come from state.rng: the
-        # graph reads its seed and offset at each replay.
-        graph.register_generator_state(self.state.rng)
-        self.row.zero_()
-        self.state.rng.manual_seed(step_seed(self.seed, n0))
-        # On the warm-up's stream, so that autograd state the warm-up left
-        # behind needs no sync with another stream.
-        with torch.cuda.graph(graph, stream=side):
-            self.fakes = self._step()
+        # The capture empties the allocator's cache on entry; emptied here
+        # first, the reading after the captures is the graphs' pools.
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved(self.device))
+        for phase in self.phases:
+            graph = torch.cuda.CUDAGraph()
+            # The step's latents, dropout masks, GP α and flips come from
+            # state.rng: the graph reads its seed and offset at each replay.
+            graph.register_generator_state(self.state.rng)
+            self.row.zero_()
+            self.state.rng.manual_seed(step_seed(self.seed, n0))
+            # On the warm-up's stream, so that autograd state the warm-up left
+            # behind needs no sync with another stream.
+            with torch.cuda.graph(graph, stream=side):
+                self._graph_fakes[phase] = self._step(phase)
+            self.graphs[phase] = graph
         with torch.no_grad():
             for t in self._persistent():
                 if id(t) in saved:
@@ -308,7 +339,8 @@ class ChunkRunner:
                 else:
                     t.zero_()
         torch.cuda.synchronize(self.device)
-        self.graph = graph
+        reserved.append(torch.cuda.memory_reserved(self.device))
+        self.capture_reserved = tuple(reserved)
         self._captured = [t.data_ptr() for t in state_tensors(self.state)]
         self.capture_seconds = time.perf_counter() - t0
 
@@ -318,12 +350,14 @@ class ChunkRunner:
         self.idx.copy_(torch.from_numpy(idx))
         self.row.zero_()
         self.n_batches.fill_(n_batches)
-        if self.device.type == "cuda" and self.graph is None:
+        if self.device.type == "cuda" and not self.graphs:
             self._capture()
         for i in range(self.chunk_steps):
+            phase = step_phase(self.hparams, n_batches + i)
             self.state.rng.manual_seed(step_seed(self.seed, n_batches + i))
-            if self.graph is not None:
-                self.graph.replay()
+            if self.graphs:
+                self.graphs[phase].replay()
+                self.fakes = self._graph_fakes[phase]
             else:
-                self.fakes = self._step()
+                self.fakes = self._step(phase)
         return self.out

@@ -12,7 +12,13 @@
   the adaptive controller's state;
 - the run directory holds ``hyper_parameters.json`` and ``train_config.json``
   (the sidecars), ``run_manifest.json``, ``events.jsonl`` (``"step"`` = images
-  seen), ``checkpoints/`` and ``samples_grid_<examples>.png``.
+  seen), ``checkpoints/`` and ``samples_grid_<examples>.png``;
+- with ``ema_decay > 0`` sample grids and evaluation use the generator's
+  average (``TrainerConfig.sample_with_ema``), as they do after restoring a
+  checkpoint that holds one;
+- on steps that skip the generator (``d_steps_per_g_step > 1``) the logged
+  ``gen_loss`` carries the last real value forward, as the reference's
+  running mean did; ``did_gen_step`` says which steps ran it.
 
 With an open-loop σ, the host work of step N (the copy of its scalars,
 logging, hooks) runs after step N+1 is dispatched, so the device does not wait
@@ -143,6 +149,9 @@ class TrainerConfig:
     # Beside the raw grid, a samples_grid_blurred image of what the critic sees.
     show_blurred_samples: bool = True
     save_sample_pngs: bool = True
+    # With hparams.ema_decay > 0, sample grids and evaluate() use the EMA
+    # generator weights; False samples the live weights even then.
+    sample_with_ema: bool = True
     # Watchdog budget in seconds for each step's scalar fetch (0 = off); the
     # first fetch of a fit call gets first_device_fetch_timeout_s.
     device_fetch_timeout_s: float = 0.0
@@ -186,7 +195,9 @@ class Trainer:
         self.state: TrainState = create_train_state(gan, hparams, device=self.device,
                                                     seed=self.cfg.seed)
         self.step_fn = make_train_step(gan, hparams, seed=self.cfg.seed)
-        self.sample_fn = make_sample_fn(gan)
+        self._use_ema = (float(getattr(hparams, "ema_decay", 0.0) or 0.0) > 0
+                         and self.cfg.sample_with_ema)
+        self.sample_fn = make_sample_fn(gan, use_ema=self._use_ema)
         # Fixed latents of the sample grid, drawn on the CPU so they do not
         # depend on the device.
         grid_seed = np.random.SeedSequence([self.cfg.seed, *_GRID_SEED_WORDS])
@@ -201,6 +212,7 @@ class Trainer:
         self._current_sigma = 0.0
         self._steps_per_epoch = 0
         self._last_metrics: Dict[str, float] = {}
+        self._gen_loss_carry: Optional[float] = None
         self.history: collections.deque = collections.deque(maxlen=HISTORY_STEPS)
         self._fetch_warmed = False
         self.chunk_runner: Optional[ChunkRunner] = None
@@ -217,7 +229,7 @@ class Trainer:
                     "image_shape": list(self.dataset.image_shape),
                     "num_examples": int(getattr(self.dataset, "num_examples", 0)),
                     "latent_size": int(self.gan.latent_size),
-                    "ema": False}  # the EMA step variant is not ported
+                    "ema": bool(self._use_ema)}
         with open(os.path.join(self.cfg.log_dir, "run_manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
 
@@ -236,6 +248,12 @@ class Trainer:
                 self._stop = True
         print(f"[trainer] restored checkpoint @ {step} examples "
               f"(n_batches={self.state.n_batches})")
+        if self.cfg.sample_with_ema and not self._use_ema and self.state.g_ema is not None:
+            # The checkpoint carries an average that the hparams did not ask
+            # for (a missing or stale sidecar): trust the state, so samples
+            # are never the live weights taken for the average.
+            self._use_ema = True
+            self.sample_fn = make_sample_fn(self.gan, use_ema=True)
 
     def _build_hooks(self) -> None:
         self.hooks = HookList()
@@ -386,6 +404,7 @@ class Trainer:
         hooks, image summaries, metric feeders. The fetch waits for that step."""
         values = self._fetch(host, ready, "step-metrics fetch").astype(np.float64).tolist()
         logs = dict(zip(names, values))
+        self._fill_gen_loss(logs)
         now = time.perf_counter()
         step_rate = reals.shape[0] / (now - self._t_last_step)
         self._t_last_step = now
@@ -501,6 +520,7 @@ class Trainer:
                 rate = executed * bs / seconds
                 for i in range(executed):
                     logs = {k: float(v[i]) for k, v in arrs.items()}
+                    self._fill_gen_loss(logs)
                     n_batches, n_img = n0 + i + 1, img0 + (i + 1) * bs
                     self._current_sigma = logs.get("std", 0.0)
                     self.hooks.after_step(bs, logs)
@@ -539,6 +559,15 @@ class Trainer:
                 self.logger.scalars(self.samples_seen, out)
                 print(f"[metrics @ {self.samples_seen}] "
                       f"{({k: round(v, 4) for k, v in out.items()})}", flush=True)
+
+    def _fill_gen_loss(self, logs: Dict) -> None:
+        """A step that skipped the generator reports ``gen_loss`` 0; log the
+        last real value instead, so that logged ``gen_loss`` never
+        interleaves real values with structural zeros."""
+        if logs.get("did_gen_step", 1.0):
+            self._gen_loss_carry = logs["gen_loss"]
+        elif self._gen_loss_carry is not None:
+            logs["gen_loss"] = self._gen_loss_carry
 
     def _log_progress(self, n_img: int, n_batches: int, logs: Dict, suffix: str = "") -> None:
         """A progress line and ``logs["images_per_sec"]`` once 5 s have passed
@@ -591,11 +620,18 @@ class Trainer:
 
     def export_weights(self, directory: str) -> None:
         """The generator's and the critic's ``state_dict`` as ``generator.pt``
-        and ``discriminator.pt``."""
+        and ``discriminator.pt``; with an average, also ``generator_ema.pt``:
+        the generator's ``state_dict`` with the averaged weights and the live
+        BatchNorm statistics."""
         os.makedirs(directory, exist_ok=True)
-        torch.save(self.state.generator.state_dict(), os.path.join(directory, "generator.pt"))
+        generator = self.state.generator.state_dict()
+        torch.save(generator, os.path.join(directory, "generator.pt"))
         torch.save(self.state.discriminator.state_dict(),
                    os.path.join(directory, "discriminator.pt"))
+        if self.state.g_ema is not None:
+            names = [n for n, _ in self.state.generator.named_parameters()]
+            torch.save(dict(generator, **dict(zip(names, self.state.g_ema))),
+                       os.path.join(directory, "generator_ema.pt"))
 
     def _aux_dict(self) -> Dict:
         aux = {}

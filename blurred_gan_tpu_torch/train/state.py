@@ -11,11 +11,19 @@ Adam's bias correction differently, so the two modes agree to float32
 rounding, not to the bit. The chunked runner keeps its own device copy of the
 batch counter for σ and the adaptive controller; the ints here stay the
 host's record, advanced per executed step.
+
+The optimizers are the JAX package's: Adam, plain SGD, and optax's RMSprop
+(:class:`RMSprop`, whose arithmetic ``torch.optim.RMSprop`` does not share).
+With ``g_learning_rate`` set (TTUR) the generator's optimizer takes it. With
+``ema_decay > 0`` the state carries ``g_ema``, an exponential moving average of
+the generator's parameters (not of its BatchNorm statistics), one tensor per
+parameter in ``generator.parameters()`` order, starting at the initial weights.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -57,20 +65,63 @@ class GAN:
         return self.discriminator(x, generator=generator)
 
 
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr)`` at its defaults: ``ν ← d·ν + (1−d)·g²`` from
+    ``ν = 0``, then ``p ← p − lr·g/√(ν + ε)`` with ε inside the root; no
+    momentum, no centring, no bias correction. ``torch.optim.RMSprop`` keeps ε
+    outside the root and defaults to ``d = 0.99``. No step counter and no host
+    read, so a CUDA graph can capture :meth:`step`."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+            nus = [self.state[p]["nu"] for p in params]
+            d = group["decay"]
+            # optax's order: (1 − d)·g² + d·ν, then g·rsqrt(ν + ε) scaled by −lr.
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - d)
+            torch._foreach_mul_(nus, d)
+            torch._foreach_add_(nus, sq)
+            upd = torch._foreach_add(nus, group["eps"])
+            torch._foreach_rsqrt_(upd)
+            torch._foreach_mul_(upd, grads)
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+
+
 def make_optimizer(name: str, params, learning_rate: float) -> torch.optim.Optimizer:
-    """Adam with tf.keras's epsilon 1e-7 (the JAX package's ``optax.adam``)."""
-    if name.lower() == "adam":
+    """The JAX package's ``make_optimizer``: Adam with tf.keras's epsilon 1e-7
+    (``optax.adam``), plain SGD (``optax.sgd``), or :class:`RMSprop`
+    (``optax.rmsprop``)."""
+    name = name.lower()
+    if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-7)
-    raise NotImplementedError(
-        f"optimizer {name!r} is not ported yet (ROADMAP queue 1, step variants)")
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=learning_rate)
+    if name == "rmsprop":
+        return RMSprop(params, lr=learning_rate)
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
 def set_capturable(opt: torch.optim.Optimizer, capturable: bool) -> None:
     """Switch ``opt`` to ``capturable`` or back, moving each step counter
     where the setting keeps it: on its parameter's device if capturable, else
-    on the CPU. A group already so set is left alone. The step counters are
-    new tensors afterwards, so a CUDA graph captured before the switch no
-    longer updates them."""
+    on the CPU. A group already so set is left alone, and so is an optimizer
+    without the setting (SGD, :class:`RMSprop`: they keep no step counter).
+    The step counters are new tensors afterwards, so a CUDA graph captured
+    before the switch no longer updates them."""
+    if "capturable" not in opt.defaults:
+        return
     for group in opt.param_groups:
         if group.get("capturable", False) == capturable:
             continue
@@ -94,6 +145,7 @@ class TrainState:
     rng: torch.Generator
     n_img: int = 0       # images seen: the global step
     n_batches: int = 0   # steps taken
+    g_ema: Optional[List[torch.Tensor]] = None  # with ema_decay > 0
 
 
 def create_train_state(gan: GAN, hparams, *, device, seed: int = 0) -> TrainState:
@@ -107,10 +159,13 @@ def create_train_state(gan: GAN, hparams, *, device, seed: int = 0) -> TrainStat
     gan.generator.to(device)
     gan.discriminator.to(device)
     lr = hparams.learning_rate
+    g_lr = float(getattr(hparams, "g_learning_rate", 0.0) or 0.0) or lr
+    use_ema = float(getattr(hparams, "ema_decay", 0.0) or 0.0) > 0.0
     return TrainState(
         generator=gan.generator,
         discriminator=gan.discriminator,
-        g_opt=make_optimizer(hparams.optimizer, gan.generator.parameters(), lr),
+        g_opt=make_optimizer(hparams.optimizer, gan.generator.parameters(), g_lr),
         d_opt=make_optimizer(hparams.optimizer, gan.discriminator.parameters(), lr),
         rng=torch.Generator(device=device),
+        g_ema=([p.detach().clone() for p in gan.generator.parameters()] if use_ema else None),
     )

@@ -63,6 +63,13 @@ def build_trainer(args: argparse.Namespace, feeders: Optional[list] = None):
               f"--device_resident (~{gb:.1f} GB uint8)", flush=True)
         dataset = dataset.materialize()
     total_examples = dataset.num_examples * args.epochs
+    if args.gen_upsample == "transpose" and args.max_blur_std >= 1.0:
+        # A heavily blurred critic never sees pixel-scale structure, so the
+        # transposed convolutions' checkerboard goes unpenalised.
+        print(f"[train_celeba] note: max_blur_std {args.max_blur_std:g} >= 1 with the "
+              f"'transpose' upsampler - heavy-blur runs leave the transposed "
+              f"convolutions' checkerboard unpenalised and score markedly better with "
+              f"--gen_upsample resize (see BASELINE.md)", flush=True)
     gan = GAN(celeba_generator(args.resolution, upsample=args.gen_upsample),
               celeba_discriminator(args.resolution), blurred=True)
     blur_ctrl = adaptive = None

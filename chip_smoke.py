@@ -58,6 +58,22 @@ Phases, each of which raises on failure:
     the kernel's time at 28² (calls replayed from a CUDA graph, so the host's
     launch time is not counted) against its plain version's output, beside its
     bound;
+12. the train-step variants at phase 4's widths, batch, σ₀ and corpus: the
+    penalty-free WGAN, RMSprop, TTUR (the generator at twice the rate), EMA
+    0.999, flip augmentation, ``d_steps_per_g_step`` 5, ``gp_every_n_steps`` 4
+    and ``grad_accumulation_steps`` 4, beside the default and lazy GP with
+    ``d_steps_per_g_step`` (all four phases): for each, a chunk
+    of 10 steps of ``fit_device_resident`` (one CUDA graph per phase the
+    configuration reaches) against 10 steps of ``fit`` from the same weights,
+    stream and seed (capturable Adam, deterministic cuDNN: every step's losses
+    and σ); the kernel's launches in each step of ``fit`` and in each captured
+    phase against those the step implies; chunked images/s replaying those
+    graphs, then from graphs captured anew with cuDNN's default algorithms;
+    the caching
+    allocator's bytes before and after those captures; ``fit``'s peak memory;
+    for accumulation one step with the kernel against one with the plain blur;
+    for the default and EMA the chunked images/s with the adaptive
+    controller's stop gate;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -111,6 +127,15 @@ MNIST_SIGMAS = (0.05, 23.5)
 MNIST_CMP_CHUNK, MNIST_CMP_CHUNKS = 25, 2  # chunked against fit, step by step
 # Phase 5e: fit's steps per run, and the fixed-batch step's.
 ADAM_FIT_STEPS, ADAM_STEPS = 24, 10
+# Phase 12: the variants as hyperparameters over the defaults (None: the
+# penalty-free WGAN, WGANHyperParameters); the chunk of the comparison with
+# fit, then the timed chunks of the same runner.
+VARIANTS = (("default", {}), ("wgan", None), ("rmsprop", {"optimizer": "rmsprop"}),
+            ("ttur", {"g_learning_rate": 2e-3}), ("ema", {"ema_decay": 0.999}),
+            ("flip", {"flip_augment": True}), ("d_steps_5", {"d_steps_per_g_step": 5}),
+            ("lazy_gp_4", {"gp_every_n_steps": 4}), ("accum_4", {"grad_accumulation_steps": 4}),
+            ("lazy_gp_4_d_steps_5", {"gp_every_n_steps": 4, "d_steps_per_g_step": 5}))
+VARIANT_CHUNK, VARIANT_TIMED_CHUNKS = 10, 2
 
 
 def log(msg: str) -> None:
@@ -756,29 +781,39 @@ def blur_kernel_rows(prof):
 def profile_chunk(trainer, card, what):
     """One more chunk of the trainer's runner under torch.profiler: the blur
     kernel's launches per replayed step, and the device's busy share (kernel
-    time over wall time). Trains the state on: use it last."""
+    time over wall time). The profiler has lost kernel records (148 blur
+    launches of 25 replays of 6, once): a count that is no whole multiple of
+    the replays is logged and the chunk profiled once more, and a second such
+    count fails. Trains the state on: use it last."""
     from torch.profiler import ProfilerActivity, profile
 
     from blurred_gan_tpu_torch.train.fast import chunk_indices
 
     runner = trainer.chunk_runner
-    n = trainer.state.n_batches
-    idx = chunk_indices(trainer.dataset.num_examples, trainer.hparams.global_batch_size,
-                        runner.chunk_steps, n, trainer.cfg.seed)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.run(idx, n)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches, blur_us = blur_kernel_rows(prof)
     k = runner.chunk_steps
-    if busy == 0:
-        raise RuntimeError(f"{what}: the profiler saw no device time in a chunk")
-    if launches % k:
-        raise RuntimeError(f"{what}: {launches} blur launches in {k} replayed steps")
+    for attempt in (1, 2):
+        n = trainer.state.n_batches
+        idx = chunk_indices(trainer.dataset.num_examples, trainer.hparams.global_batch_size,
+                            k, n, trainer.cfg.seed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.run(idx, n)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        trainer.state.n_batches += k
+        trainer.state.n_img += k * trainer.hparams.global_batch_size
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        launches, blur_us = blur_kernel_rows(prof)
+        if busy == 0:
+            raise RuntimeError(f"{what}: the profiler saw no device time in a chunk")
+        if launches % k == 0:
+            break
+        if attempt == 2:
+            raise RuntimeError(f"{what}: {launches} blur launches in {k} replayed steps")
+        log(f"[chunked] {what}: the profiler counted {launches} blur launches in {k} replayed "
+            f"steps, no whole number per step; profiling another chunk")
     log(f"[chunked] {what}, profiled chunk of {k} replayed steps: wall "
         f"{wall_us / k / 1e3:.2f} ms/step, device busy {busy / k / 1e3:.2f} ms/step "
         f"({100 * busy / wall_us:.1f}% of wall), blur_planes {launches // k} launches and "
@@ -1047,6 +1082,231 @@ def run_mnist(blur_cuda, blur_matrix, device, workdir, card):
     return timings
 
 
+def expected_launches(phase, accum: int) -> int:
+    """Blur launches of one step of ``phase`` = (do_gp, do_gen): per
+    microbatch the critic on cat([fakes, reals]); with the penalty its
+    forward, backward and double backward on the interpolates; with the
+    generator step the critic's forward on the fakes and its backward."""
+    do_gp, do_gen = phase
+    return accum * (1 + 3 * do_gp + 2 * do_gen)
+
+
+def variant_trainer(template, dataset, workdir, name, flags, adaptive=False):
+    """A trainer of phase 4's configuration with the variant's
+    hyperparameters; its networks are copies of ``template``, initialised
+    from the seed by the trainer."""
+    import copy
+
+    from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController, BlurDecayController
+    from blurred_gan_tpu_torch.train.config import (
+        BlurredWGANGPHyperParameters, WGANHyperParameters)
+    from blurred_gan_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    hp = (WGANHyperParameters(batch_size=BATCH, global_batch_size=BATCH) if flags is None
+          else BlurredWGANGPHyperParameters(batch_size=BATCH, global_batch_size=BATCH, **flags))
+    cfg = TrainerConfig(log_dir=os.path.join(workdir, f"variant_{name}"),
+                        sample_grid_every_n_examples=0, checkpoint_every_n_examples=0,
+                        image_summaries_interval_batches=0, save_sample_pngs=False, seed=0)
+    ctrl = ({"adaptive_controller": AdaptiveBlurController(max_value=SIGMA0)} if adaptive else
+            {"blur_controller": BlurDecayController(total_n_training_examples=10 * NUM_EXAMPLES,
+                                                    max_value=SIGMA0)})
+    return Trainer(copy.deepcopy(template), hp, dataset, device="cuda", trainer_config=cfg,
+                   **ctrl)
+
+
+@contextlib.contextmanager
+def captured_launches(blur_cuda):
+    """Record the kernel launches of each phase's step as the runner
+    captures it (a replay launches what was captured): yields the dict."""
+    from blurred_gan_tpu_torch.train.fast import ChunkRunner
+
+    counts = {}
+    step = ChunkRunner._step
+
+    def counted(self, phase):
+        before = blur_cuda.launch_count
+        out = step(self, phase)
+        if torch.cuda.is_current_stream_capturing():
+            counts[phase] = blur_cuda.launch_count - before
+        return out
+
+    ChunkRunner._step = counted
+    try:
+        yield counts
+    finally:
+        ChunkRunner._step = step
+
+
+def run_variant(blur_cuda, template, dataset, workdir, name, flags, card):
+    """Phase 12, one configuration. Returns its record for the JSON line."""
+    import shutil
+
+    from blurred_gan_tpu_torch.train.fast import state_tensors
+    from blurred_gan_tpu_torch.train.step import step_phase
+
+    total = 10 * NUM_EXAMPLES
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = capturable_adam(variant_trainer(template, dataset, workdir, f"{name}_fit", flags))
+        accum = ref.hparams.grad_accumulation_steps
+        with torch.no_grad():
+            start = [t.clone() for t in state_tensors(ref.state)]
+        per_step = count_step_launches(blur_cuda, ref)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        blur_cuda.launch_count = 0
+        ref.fit(total_examples=total, max_steps=VARIANT_CHUNK)
+        torch.cuda.synchronize()
+        fit_launches = blur_cuda.launch_count
+        fit_peak = torch.cuda.max_memory_allocated() - held
+        chunked = variant_trainer(template, dataset, workdir, f"{name}_chunked", flags)
+        with captured_launches(blur_cuda) as captured:
+            chunked.fit_device_resident(total_examples=total, chunk_steps=VARIANT_CHUNK,
+                                        max_chunks=1)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    runner = chunked.chunk_runner
+    phases = [step_phase(ref.hparams, n) for n in range(VARIANT_CHUNK)]
+    want = [expected_launches(p, accum) for p in phases]
+    if fit_launches == 0 or per_step != want:
+        raise RuntimeError(f"phase 12 {name}: kernel launches per step of fit {per_step}, "
+                           f"expected {want} for phases {phases}")
+    if sorted(runner.graphs) != sorted(set(phases)) or captured != {
+            p: expected_launches(p, accum) for p in runner.graphs}:
+        raise RuntimeError(f"phase 12 {name}: graphs {sorted(runner.graphs)}, launches "
+                           f"captured per phase {captured}, phases {sorted(set(phases))}")
+    history, ref_history = list(chunked.history), list(ref.history)
+    if len(history) != VARIANT_CHUNK or len(ref_history) != VARIANT_CHUNK:
+        raise RuntimeError(f"phase 12 {name}: {len(history)} chunked, {len(ref_history)} "
+                           f"fit steps")
+    for n, (a, b) in enumerate(zip(ref_history, history)):
+        if not losses_close(a, b) or a["did_gen_step"] != b["did_gen_step"]:
+            raise RuntimeError(f"phase 12 {name}, step {n + 1}: chunked {b} vs fit {a}")
+        if a["std"] != b["std"] or not math.isclose(a["std"], ref.blur_controller.sigma(n),
+                                                    rel_tol=1e-6):
+            raise RuntimeError(f"phase 12 {name}, step {n + 1}: sigma {b['std']!r} vs fit "
+                               f"{a['std']!r}")
+        if not all(math.isfinite(b[k]) for k in ("disc_loss", "gen_loss", "gp_term")):
+            raise RuntimeError(f"phase 12 {name}, step {n + 1}: {b}")
+    diffs = relative_diffs(ref_history, history)
+    # Timed twice: replaying the comparison's graphs (cuDNN's deterministic
+    # algorithms), then graphs captured anew with the default ones, as a run
+    # takes them.
+    chunked.fit_device_resident(total_examples=total, chunk_steps=VARIANT_CHUNK,
+                                max_chunks=VARIANT_TIMED_CHUNKS)
+    if chunked.chunk_runner is not runner:
+        raise RuntimeError(f"phase 12 {name}: the runner was not kept")
+    det_rate = statistics.median(chunk_rates(list(chunked.history)[VARIANT_CHUNK:],
+                                             VARIANT_CHUNK))
+    chunked.chunk_runner = runner = None
+    n_timed = len(chunked.history)
+    chunked.fit_device_resident(total_examples=total, chunk_steps=VARIANT_CHUNK,
+                                max_chunks=1 + VARIANT_TIMED_CHUNKS)
+    runner = chunked.chunk_runner
+    before, warmed, after = runner.capture_reserved
+    rate = statistics.median(chunk_rates(list(chunked.history)[n_timed + VARIANT_CHUNK:],
+                                         VARIANT_CHUNK))
+    record = {"name": name, "phases": {f"{int(g)}{int(d)}": captured[(g, d)]
+                                       for g, d in sorted(captured, reverse=True)},
+              "graphs": len(runner.graphs), "chunked_img_per_s": rate,
+              "deterministic_img_per_s": det_rate,
+              "graph_bytes": after - warmed, "fit_peak_bytes": fit_peak, "held_bytes": held}
+    line = (f"[variants] {name}: {VARIANT_CHUNK} chunked steps equal fit's (largest relative "
+            f"difference {max(diffs):.1e}, {sum(d == 0 for d in diffs)} steps bit-equal), sigma "
+            f"bit-equal; blur launches per step of fit {per_step}, per captured phase "
+            f"(gp, gen) {record['phases']}; chunked {rate:.1f} img/s (median of "
+            f"{VARIANT_TIMED_CHUNKS} chunks of {VARIANT_CHUNK} after the capture chunk, "
+            f"default cuDNN), {det_rate:.1f} replaying the comparison's deterministic-cuDNN "
+            f"graphs; {len(runner.graphs)} graphs captured in "
+            f"{runner.capture_seconds:.2f} s, reserved {before / 2**20:.0f} MiB before the "
+            f"warm-up, {warmed / 2**20:.0f} MiB after it (cache emptied), "
+            f"{after / 2**20:.0f} MiB after the captures (+{(after - warmed) / 2**20:.0f} MiB); "
+            f"fit's peak allocated {fit_peak / 2**20:.0f} MiB over the "
+            f"{held / 2**20:.0f} MiB held before it")
+    if accum > 1:
+        # The kernel against the plain blur at the microbatches' plane counts:
+        # one step each from fit's starting state.
+        first = {}
+        for impl in ("cuda", "torch"):
+            ref.state.g_opt.state.clear()
+            ref.state.d_opt.state.clear()
+            with torch.no_grad():
+                for t, v in zip(state_tensors(ref.state), start):
+                    t.copy_(v)
+            ref.state.n_img = ref.state.n_batches = 0
+            ref.gan.blur_impl = impl
+            reals = torch.from_numpy(next(dataset.batches(BATCH, seed=1))).to(ref.device)
+            first[impl] = {k: float(v) for k, v in
+                           ref.step_fn(ref.state, reals, SIGMA0)[0].items()}
+        if not losses_close(first["torch"], first["cuda"]):
+            raise RuntimeError(f"phase 12 {name}: kernel {first['cuda']} vs plain "
+                               f"{first['torch']}")
+        line += ("; one step, kernel vs plain blur: " + ", ".join(
+            f"{k} {first['cuda'][k]:+.6f}/{first['torch'][k]:+.6f}"
+            for k in ("disc_loss", "gen_loss", "gp_term")))
+    log(line + f" on {card}")
+    ref.close()
+    chunked.close()
+    del ref, chunked, runner
+    shutil.rmtree(os.path.join(workdir, f"variant_{name}_fit"), ignore_errors=True)
+    shutil.rmtree(os.path.join(workdir, f"variant_{name}_chunked"), ignore_errors=True)
+    return record
+
+
+def gate_rate(template, dataset, workdir, name, flags, card):
+    """Phase 12: chunked images/s with the adaptive controller, whose stop
+    gate clones every state tensor each step. Returns (img/s, bytes cloned
+    per step)."""
+    from blurred_gan_tpu_torch.train.fast import state_tensors
+
+    tr = variant_trainer(template, dataset, workdir, f"{name}_gate", flags, adaptive=True)
+    tr.fit_device_resident(total_examples=10 ** 9, chunk_steps=VARIANT_CHUNK,
+                           max_chunks=1 + VARIANT_TIMED_CHUNKS)
+    tr.close()
+    rate = statistics.median(chunk_rates(list(tr.history)[VARIANT_CHUNK:], VARIANT_CHUNK))
+    cloned = sum(t.numel() * t.element_size() for t in state_tensors(tr.state))
+    log(f"[variants] {name} with the adaptive controller: chunked {rate:.1f} img/s (median of "
+        f"{VARIANT_TIMED_CHUNKS} chunks of {VARIANT_CHUNK}); its stop gate clones "
+        f"{cloned / 2**20:.0f} MiB of state per step on {card}")
+    return rate, cloned
+
+
+def run_variants(blur_cuda, dataset, workdir, card):
+    """Phase 12. Returns the variants' records."""
+    import gc
+
+    from blurred_gan_tpu_torch.models.dcgan import celeba_discriminator, celeba_generator
+    from blurred_gan_tpu_torch.train.state import GAN
+
+    template = GAN(celeba_generator(RES), celeba_discriminator(RES), blurred=True)
+    records = []
+    for name, flags in VARIANTS:
+        records.append(run_variant(blur_cuda, template, dataset, workdir, name, flags, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_name = {r["name"]: r for r in records}
+    for name in ("default", "ema"):
+        flags = dict(VARIANTS)[name]
+        by_name[name]["gated_img_per_s"], by_name[name]["gate_bytes_per_step"] = gate_rate(
+            template, dataset, workdir, name, flags, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    base = by_name["default"]
+    for key, what in (("chunked_img_per_s", "default"),
+                      ("deterministic_img_per_s", "deterministic")):
+        log(f"[variants] chunked img/s ({what} cuDNN) against the default's "
+            f"{base[key]:.1f}: " + ", ".join(
+                f"{r['name']} {r[key]:.1f} ({r[key] / base[key]:.2f}x)" for r in records)
+            + f" on {card}")
+    log(f"[variants] fit's peak allocated over what was held before it, accumulation of 4 "
+        f"against 1: {by_name['accum_4']['fit_peak_bytes'] / 2**20:.0f} / "
+        f"{base['fit_peak_bytes'] / 2**20:.0f} MiB on {card}")
+    non_jax_check()
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
@@ -1108,6 +1368,8 @@ def main():
             run_chunked(blur_cuda, workdir, history, slice_rate, step_rate, card)
         with phase("11 MNIST"):
             mnist_timings = run_mnist(blur_cuda, blur_matrix, device, workdir, card)
+        with phase("12 variants"):
+            variants = run_variants(blur_cuda, trainer.dataset, workdir, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -1119,7 +1381,8 @@ def main():
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
         # The library call is the plain version itself: two cuBLAS matmuls.
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
-        "planes": headline["planes"], "cases": timings + mnist_timings}]}), flush=True)
+        "planes": headline["planes"], "cases": timings + mnist_timings,
+        "variants": variants}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -185,10 +185,21 @@ def test_counters(run):
                                          ("grad_accumulation_steps", 2),
                                          ("gp_coefficient", None)])
 def test_unported_settings_raise(field, value):
-    hp = BlurredWGANGPHyperParameters()
+    # Once unported, each of these settings now builds a step that runs: two
+    # CPU steps with finite losses (the variants' parity with the JAX step is
+    # in tests/test_torch_variants.py, test_torch_ema.py, test_torch_accum.py).
+    hp = BlurredWGANGPHyperParameters(batch_size=B, global_batch_size=B)
     setattr(hp, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(torch_gan(), hp)
+    gan = torch_gan()
+    state = create_train_state(gan, hp, device="cpu")
+    step = make_train_step(gan, hp)
+    reals = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (B, RES, RES, 3))
+                             .astype(np.uint8))
+    for _ in range(2):
+        metrics, fakes = step(state, reals, SIGMA)
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+        assert fakes.shape == (B, 3, RES, RES)
+    assert state.n_batches == 2
 
 
 def test_draws_are_a_function_of_seed_and_counter():
