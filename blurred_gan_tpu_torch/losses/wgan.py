@@ -10,6 +10,8 @@
 - ``include_gp=False`` (the skipped steps of lazy regularisation) builds the
   loss without the penalty: no interpolates, no double backward, no draw of
   ``α``; ``gp_term`` is then a 0-d zero.
+- ``α`` takes the reals' dtype; bfloat16 fakes meeting float32 reals give
+  float32 interpolates, as ``jnp`` promotes them.
 """
 
 from __future__ import annotations

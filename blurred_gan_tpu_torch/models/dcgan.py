@@ -13,10 +13,27 @@ over by ``blurred_gan_tpu_torch.convert`` give the JAX package's outputs:
   *biased* batch variance (flax), unlike ``nn.BatchNorm2d``;
 - LeakyReLU 0.3, glorot-uniform kernels, zero biases, bias-free generator convs,
   critic dropout 0.3.
+
+Parameters are float32. ``compute_dtype`` (bfloat16 for ``--bf16``) moves the
+JAX package's dtype boundaries, not autocast's:
+
+- each Dense, Conv and ConvTranspose casts its input and its float32 weight
+  (and bias) to ``compute_dtype`` and returns that dtype (flax's
+  ``promote_dtype``);
+- BatchNorm computes its statistics and its normalise / scale / shift in
+  float32 and casts only the result to its ``dtype`` (flax's ``_normalize``);
+  the generator's ``bn_dtype`` defaults to float32;
+- the generator casts to float32 before its tanh unless ``output_f32`` is
+  False;
+- the critic casts its input to ``compute_dtype`` and its flattened features
+  back to float32 before its float32 Dense.
+
+At the defaults every cast is to the dtype a tensor already has, a no-op.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -41,37 +58,50 @@ def _conv_transpose_pad_lo(k: int, s: int) -> int:
     return k - 1 if s > k - 1 else -(-pad_len // 2)
 
 
-class SameConv2d(nn.Module):
-    """flax ``nn.Conv(padding="SAME")``; weight (out, in, kh, kw)."""
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """``t`` in ``dtype`` (itself if it is already, or None)."""
+    return t if t is None else t.to(dtype)
 
-    def __init__(self, in_ch: int, out_ch: int, stride: int = 1, bias: bool = True):
+
+class SameConv2d(nn.Module):
+    """flax ``nn.Conv(padding="SAME")``; weight (out, in, kh, kw). Computes
+    in ``compute_dtype``."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, KERNEL, KERNEL))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x):
+        dt = self.compute_dtype
         ph = _same_pads(x.shape[2], KERNEL, self.stride)
         pw = _same_pads(x.shape[3], KERNEL, self.stride)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride)
+        x = F.pad(_cast(x, dt), (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, _cast(self.weight, dt), _cast(self.bias, dt), stride=self.stride)
 
 
 class SameConvTranspose2d(nn.Module):
     """flax ``nn.ConvTranspose(padding="SAME")``, bias-free; weight (in, out,
     kh, kw) holding the spatially flipped flax kernel. Output is ``stride``
-    times the input size."""
+    times the input size. Computes in ``compute_dtype``."""
 
-    def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(in_ch, out_ch, KERNEL, KERNEL))
         self.register_parameter("bias", None)
 
     def forward(self, x):
+        dt = self.compute_dtype
         h, w = x.shape[2], x.shape[3]
         pad = KERNEL - 1 - _conv_transpose_pad_lo(KERNEL, self.stride)
-        y = F.conv_transpose2d(x, self.weight, stride=self.stride, padding=pad)
+        y = F.conv_transpose2d(_cast(x, dt), _cast(self.weight, dt), stride=self.stride,
+                               padding=pad)
         return y[:, :, :self.stride * h, :self.stride * w]
 
 
@@ -80,22 +110,28 @@ class BatchNorm(nn.Module):
 
     Train mode normalises with the biased batch statistics and updates the
     running buffers as ``r = 0.99 r + 0.01 batch`` with the biased variance;
-    eval mode uses the running buffers.
+    eval mode uses the running buffers. Statistics and arithmetic are float32
+    whatever the input's dtype; the result is cast to ``dtype``.
     """
 
-    def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-3):
+    def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
+        # Two casts, one for the statistics and one for the normalisation, as
+        # flax has: under bfloat16 the backward then rounds each path's
+        # gradient to bfloat16 before their sum, as JAX's does.
         if self.training:
             dims = [0, *range(2, x.dim())]
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            var, mean = torch.var_mean(x.to(torch.float32), dim=dims, correction=0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     mean.detach(), alpha=1.0 - self.momentum)
@@ -105,23 +141,37 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         shape = (1, -1) + (1,) * (x.dim() - 2)
         scale = self.weight * torch.rsqrt(var + self.eps)
-        return (x - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
+        y = ((x.to(torch.float32) - mean.reshape(shape)) * scale.reshape(shape)
+             + self.bias.reshape(shape))
+        return y.to(self.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _weak(value: float, dtype: torch.dtype) -> float:
+    """A Python constant rounded to ``dtype``, as JAX rounds a weakly typed
+    scalar that meets an array of that dtype: the slope and the dropout
+    scale of a bfloat16 activation are bfloat16 numbers there. At float32
+    it is the float32 number PyTorch uses anyway."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def _leaky(x):
-    return F.leaky_relu(x, LEAKY_SLOPE)
+    return F.leaky_relu(x, _weak(LEAKY_SLOPE, x.dtype))
 
 
 class Upsample(nn.Module):
     """One generator up-stage: ConvTranspose(5x5, s), or for ``resize`` with
-    ``s > 1`` nearest-neighbour ``s``x then Conv(5x5, s1). Bias-free."""
+    ``s > 1`` nearest-neighbour ``s``x then Conv(5x5, s1). Bias-free; computes
+    in ``compute_dtype``."""
 
-    def __init__(self, in_ch: int, out_ch: int, stride: int, mode: str):
+    def __init__(self, in_ch: int, out_ch: int, stride: int, mode: str,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
         self.resize = mode == "resize" and stride > 1
-        self.conv = (SameConv2d(in_ch, out_ch, 1, bias=False) if self.resize
-                     else SameConvTranspose2d(in_ch, out_ch, stride))
+        self.conv = (SameConv2d(in_ch, out_ch, 1, bias=False, compute_dtype=compute_dtype)
+                     if self.resize
+                     else SameConvTranspose2d(in_ch, out_ch, stride, compute_dtype=compute_dtype))
 
     @property
     def flax_kind(self) -> str:
@@ -129,8 +179,10 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         if self.resize:
-            x = x.repeat_interleave(self.stride, dim=2).repeat_interleave(
-                self.stride, dim=3)
+            # Cast before the repeat (the conv's own cast is then a no-op):
+            # the same values, a quarter of the bytes.
+            x = _cast(x, self.conv.compute_dtype).repeat_interleave(
+                self.stride, dim=2).repeat_interleave(self.stride, dim=3)
         return self.conv(x)
 
 
@@ -139,6 +191,9 @@ class DCGANGenerator(nn.Module):
 
     Train/eval mode (``.train()`` / ``.eval()``) switches BatchNorm between
     batch and running statistics, as flax's ``train`` flag does.
+    ``compute_dtype``: the Dense's and the convolutions'; ``bn_dtype``: the
+    BatchNorm outputs' (None: float32); ``output_f32``: tanh on a float32 cast
+    of the last convolution (False: in ``compute_dtype``).
     """
 
     def __init__(self, latent_size: int = 100, init_hw: Tuple[int, int] = (4, 4),
@@ -146,54 +201,66 @@ class DCGANGenerator(nn.Module):
                  blocks: Sequence[Tuple[int, int]] = ((512, 1), (256, 2), (128, 2), (64, 2)),
                  out_channels: int = 3, final_transpose: bool = False,
                  final_stride: int = 1, upsample: str = "transpose",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32,
+                 bn_dtype: Optional[torch.dtype] = None, output_f32: bool = True):
         super().__init__()
         if upsample not in ("transpose", "resize"):
             raise ValueError(f"upsample must be 'transpose' or 'resize', got {upsample!r}")
         self.latent_size = latent_size
         self.init_hw = tuple(init_hw)
         self.init_features = init_features
+        self.compute_dtype = compute_dtype
+        self.output_f32 = output_f32
+        bn_dtype = bn_dtype or torch.float32
         h0, w0 = self.init_hw
         self.dense = nn.Linear(latent_size, h0 * w0 * init_features, bias=False)
-        self.dense_bn = BatchNorm(h0 * w0 * init_features)
+        self.dense_bn = BatchNorm(h0 * w0 * init_features, dtype=bn_dtype)
         ups, bns, ch = [], [], init_features
         for features, stride in blocks:
-            ups.append(Upsample(ch, features, stride, upsample))
-            bns.append(BatchNorm(features))
+            ups.append(Upsample(ch, features, stride, upsample, compute_dtype))
+            bns.append(BatchNorm(features, dtype=bn_dtype))
             ch = features
         self.ups = nn.ModuleList(ups)
         self.bns = nn.ModuleList(bns)
-        self.final = (Upsample(ch, out_channels, final_stride, upsample) if final_transpose
-                      else SameConv2d(ch, out_channels, final_stride, bias=False))
+        self.final = (Upsample(ch, out_channels, final_stride, upsample, compute_dtype)
+                      if final_transpose
+                      else SameConv2d(ch, out_channels, final_stride, bias=False,
+                                      compute_dtype=compute_dtype))
         init_weights(self, generator)
 
     def forward(self, z):
         h0, w0 = self.init_hw
-        x = _leaky(self.dense_bn(self.dense(z)))
+        dt = self.compute_dtype
+        x = _leaky(self.dense_bn(F.linear(_cast(z, dt), _cast(self.dense.weight, dt))))
         # flax reshapes the Dense output as NHWC; NCHW from there on.
         x = x.reshape(x.shape[0], h0, w0, self.init_features).permute(0, 3, 1, 2)
         for up, bn in zip(self.ups, self.bns):
             x = _leaky(bn(up(x)))
-        return torch.tanh(self.final(x))
+        x = self.final(x)
+        return torch.tanh(x.to(torch.float32) if self.output_f32 else x)
 
 
 class DCGANDiscriminator(nn.Module):
     """[Conv s2 + LeakyReLU + Dropout]* -> NHWC flatten -> Dense(1).
 
     Dropout is active in train mode and draws its masks from the
-    ``generator`` passed to ``forward``.
+    ``generator`` passed to ``forward``. The convolutions, LeakyReLUs and
+    dropout run in ``compute_dtype``, the Dense in float32.
     """
 
     def __init__(self, channels: Sequence[int] = (16, 32, 64, 128, 256, 512),
                  dropout_rate: float = 0.3, in_channels: int = 3,
                  image_hw: Tuple[int, int] = (128, 128),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.compute_dtype = compute_dtype
         convs, ch = [], in_channels
         h, w = image_hw
         for out_ch in channels:
-            convs.append(SameConv2d(ch, out_ch, 2))
+            convs.append(SameConv2d(ch, out_ch, 2, compute_dtype=compute_dtype))
             ch, h, w = out_ch, -(-h // 2), -(-w // 2)
         self.convs = nn.ModuleList(convs)
         self.dense = nn.Linear(ch * h * w, 1)
@@ -201,12 +268,13 @@ class DCGANDiscriminator(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         keep = 1.0 - self.dropout_rate
+        x = _cast(x, self.compute_dtype)
         for conv in self.convs:
             x = _leaky(conv(x))
             if self.training and self.dropout_rate > 0:
                 mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-                x = torch.where(mask, x / keep, torch.zeros_like(x))
-        return self.dense(x.permute(0, 2, 3, 1).flatten(1))
+                x = torch.where(mask, x / _weak(keep, x.dtype), torch.zeros_like(x))
+        return self.dense(x.permute(0, 2, 3, 1).flatten(1).to(torch.float32))
 
 
 def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
@@ -225,18 +293,19 @@ def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None)
 # ---------------------------------------------------------------------------
 
 
-def mnist_generator(latent_size: int = 100, upsample: str = "transpose", generator=None):
+def mnist_generator(latent_size: int = 100, upsample: str = "transpose", generator=None,
+                    compute_dtype: torch.dtype = torch.float32):
     """28x28x1 generator."""
     return DCGANGenerator(latent_size=latent_size, init_hw=(7, 7), init_features=256,
                           blocks=((128, 1), (64, 2)), out_channels=1,
                           final_transpose=True, final_stride=2, upsample=upsample,
-                          generator=generator)
+                          generator=generator, compute_dtype=compute_dtype)
 
 
-def mnist_discriminator(generator=None):
+def mnist_discriminator(generator=None, compute_dtype: torch.dtype = torch.float32):
     """28x28x1 critic."""
     return DCGANDiscriminator(channels=(64, 128), in_channels=1, image_hw=(28, 28),
-                              generator=generator)
+                              generator=generator, compute_dtype=compute_dtype)
 
 
 def _check_resolution(resolution: int) -> None:
@@ -245,23 +314,30 @@ def _check_resolution(resolution: int) -> None:
 
 
 def celeba_generator(resolution: int = 128, latent_size: int = 100,
-                     upsample: str = "transpose", generator=None):
+                     upsample: str = "transpose", generator=None,
+                     compute_dtype: torch.dtype = torch.float32,
+                     bn_dtype: Optional[torch.dtype] = None, output_f32: bool = True):
     """CelebA generator at a power-of-two resolution >= 8 (4x4x512 -> up-stages
-    -> Conv tanh; at 128 the 512 -> 16 stack)."""
+    -> Conv tanh; at 128 the 512 -> 16 stack). ``compute_dtype``,
+    ``bn_dtype``, ``output_f32``: see :class:`DCGANGenerator` (``--bf16``
+    sets the first; ``--fast_gen`` the other two to bfloat16 and False)."""
     _check_resolution(resolution)
     n_up = resolution.bit_length() - 3
     chans = [512, 256, 128, 64, 32, 16]
     blocks = [(512, 1)] + [(chans[min(i + 1, len(chans) - 1)], 2) for i in range(n_up)]
     return DCGANGenerator(latent_size=latent_size, init_hw=(4, 4), init_features=512,
                           blocks=tuple(blocks), out_channels=3, final_transpose=False,
-                          final_stride=1, upsample=upsample, generator=generator)
+                          final_stride=1, upsample=upsample, generator=generator,
+                          compute_dtype=compute_dtype, bn_dtype=bn_dtype, output_f32=output_f32)
 
 
-def celeba_discriminator(resolution: int = 128, generator=None):
+def celeba_discriminator(resolution: int = 128, generator=None,
+                         compute_dtype: torch.dtype = torch.float32):
     """CelebA critic; at 128 the 16 -> 512 stride-2 stack (down to 2x2)."""
     _check_resolution(resolution)
     n_down = resolution.bit_length() - 2
     chans = [16, 32, 64, 128, 256, 512]
     channels = tuple(chans[max(0, len(chans) - n_down):])
     return DCGANDiscriminator(channels=channels, in_channels=3,
-                              image_hw=(resolution, resolution), generator=generator)
+                              image_hw=(resolution, resolution), generator=generator,
+                              compute_dtype=compute_dtype)

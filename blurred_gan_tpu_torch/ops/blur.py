@@ -15,7 +15,9 @@ a σ held in a device tensor can change between calls without any rebuild.
 
 Images are NCHW. The blur is ``out[p] = T_h @ X[p] @ T_w`` for every
 ``(N·C)`` plane, which the hand-written kernel in ``ops/blur_cuda.py`` computes
-on the GPU. Zero-padded SAME borders: border rows of ``T`` sum to less than 1
+on the GPU. The arithmetic is float32 whatever the images' dtype, and the
+result takes the images' dtype (bfloat16 fakes under ``--fast_gen``), as the
+JAX package's casts around its kernel do. Zero-padded SAME borders: border rows of ``T`` sum to less than 1
 (normalised by the full kernel sum, not per row).
 """
 

@@ -60,8 +60,10 @@ from blurred_gan_tpu_torch.train.step import (
     Phase, make_step_body, reachable_phases, step_phase, step_seed)
 
 # Eager steps of each phase on a side stream before the captures (PyTorch's
-# CUDA-graph notes: lazy initialisation, cuDNN's algorithm choice and the
-# optimizers' state happen there, so that no capture allocates state).
+# CUDA-graph notes: lazy initialisation, cuDNN's algorithm choice (bfloat16's
+# too) and the optimizers' state happen there, so that no capture allocates
+# state). Under ``--bf16`` each replay also casts the float32 weights anew, in
+# the graph's pool.
 WARMUP_STEPS = 3
 
 

@@ -60,6 +60,13 @@ every step, in this order:
 A step can also take ``flip``, ``z_d``, ``z_g`` and ``alpha`` pinned through
 ``noise``, each on its own.
 
+With bfloat16 networks (``--bf16``; ``models/dcgan.py``) the reals, the draws
+and the pinned noise stay float32. ``torch.cat([fakes, reals])`` promotes
+``--fast_gen``'s bfloat16 fakes to float32, as ``jnp.concatenate`` does, and
+so do the penalty's interpolates, so their input gradient and its norm are
+float32; the accumulated path's ``torch.cat`` of microbatch fakes keeps their
+dtype, and the returned fakes are the generator's.
+
 ``make_step_body`` is the step without the reseed and the counters: it reads
 nothing back to the host and keeps no host state, so it can be captured in a
 CUDA graph (``train/fast.py``), one graph per phase, with σ as a device

@@ -74,6 +74,18 @@ Phases, each of which raises on failure:
     for accumulation one step with the kernel against one with the plain blur;
     for the default and EMA the chunked images/s with the adaptive
     controller's stop gate;
+13. bfloat16 (``--bf16``, ``--bf16 --fast_gen``) at phase 4's widths, batch,
+    σ₀ and corpus: 12 steps of ``fit`` through the entry point's
+    ``build_trainer`` for each (losses finite, σ on the schedule, 6 kernel
+    launches a step, the networks' dtypes read by forward hooks); one step
+    with the kernel against one with the plain blur; the bfloat16 step
+    against the float32 step from the same weights and draws (relative
+    differences of the losses and of the critic's gradient norm); 10 chunked
+    steps against 10 of ``fit`` under deterministic cuDNN, bit-equal; then,
+    in turns, chunked and ``fit`` images/s of float32, ``--bf16`` and
+    ``--bf16 --fast_gen``, capture seconds, the graphs' pools and ``fit``'s
+    peak; and a profile of a replayed chunk of each (top kernels, busy share,
+    the blur's and the copies' share, TFLOP/s);
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -136,6 +148,20 @@ VARIANTS = (("default", {}), ("wgan", None), ("rmsprop", {"optimizer": "rmsprop"
             ("lazy_gp_4", {"gp_every_n_steps": 4}), ("accum_4", {"grad_accumulation_steps": 4}),
             ("lazy_gp_4_d_steps_5", {"gp_every_n_steps": 4, "d_steps_per_g_step": 5}))
 VARIANT_CHUNK, VARIANT_TIMED_CHUNKS = 10, 2
+# Phase 13: the entry point's flags of each configuration; a bfloat16 step
+# with the kernel against one with the plain blur (float32 blur outputs that
+# differ in the last bits round to bfloat16 differently at a few elements);
+# the bound on a bfloat16 step against the float32 one, |bf16 − f32| <=
+# GROSS_REL·|f32| + GROSS_ABS, which only a broken step exceeds (the JAX
+# package's own gap at narrow widths is 3e-2 relative at most); fit's steps
+# per timed run; the step's FLOPs (PERF.md §5) and the card's dense bf16
+# tensor-core peak.
+PRECISIONS = (("float32", {}), ("bf16", {"bf16": True}),
+              ("bf16_fast_gen", {"bf16": True, "fast_gen": True}))
+BF16_STEP_TOL = dict(rtol=1e-2, atol=1e-3)
+GROSS_REL, GROSS_ABS = 0.25, 1e-3
+BF16_FIT_STEPS = 24
+STEP_FLOPS, PEAK_BF16_FLOPS = 167e9, 989e12
 
 
 def log(msg: str) -> None:
@@ -166,7 +192,7 @@ def smoke_args(log_dir: str, **flags):
             "--max_blur_std", str(SIGMA0), "--num_examples", str(NUM_EXAMPLES), "--seed", "0",
             "--device", "cuda", "--log_dir", log_dir]
     for k, v in flags.items():
-        argv += [f"--{k}", str(v)]
+        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
     return parse_args(argv)
 
 
@@ -1137,8 +1163,9 @@ def captured_launches(blur_cuda):
         ChunkRunner._step = step
 
 
-def run_variant(blur_cuda, template, dataset, workdir, name, flags, card):
-    """Phase 12, one configuration. Returns its record for the JSON line."""
+def run_variant(blur_cuda, template, dataset, workdir, name, flags, card, bit_equal=False):
+    """Phase 12, one configuration (and phase 13's chunked check, which
+    needs every step ``bit_equal``). Returns its record for the JSON line."""
     import shutil
 
     from blurred_gan_tpu_torch.train.fast import state_tensors
@@ -1191,6 +1218,9 @@ def run_variant(blur_cuda, template, dataset, workdir, name, flags, card):
         if not all(math.isfinite(b[k]) for k in ("disc_loss", "gen_loss", "gp_term")):
             raise RuntimeError(f"phase 12 {name}, step {n + 1}: {b}")
     diffs = relative_diffs(ref_history, history)
+    if bit_equal and any(diffs):
+        raise RuntimeError(f"{name}: chunked steps part from fit's under deterministic cuDNN "
+                           f"(largest relative difference per step {diffs})")
     # Timed twice: replaying the comparison's graphs (cuDNN's deterministic
     # algorithms), then graphs captured anew with the default ones, as a run
     # takes them.
@@ -1211,6 +1241,7 @@ def run_variant(blur_cuda, template, dataset, workdir, name, flags, card):
     record = {"name": name, "phases": {f"{int(g)}{int(d)}": captured[(g, d)]
                                        for g, d in sorted(captured, reverse=True)},
               "graphs": len(runner.graphs), "chunked_img_per_s": rate,
+              "capture_s": runner.capture_seconds, "bit_equal_steps": sum(d == 0 for d in diffs),
               "deterministic_img_per_s": det_rate,
               "graph_bytes": after - warmed, "fit_peak_bytes": fit_peak, "held_bytes": held}
     line = (f"[variants] {name}: {VARIANT_CHUNK} chunked steps equal fit's (largest relative "
@@ -1307,6 +1338,294 @@ def run_variants(blur_cuda, dataset, workdir, card):
     return records
 
 
+def precision_template(flags):
+    """The CelebA-128 pair with the entry point's dtypes for ``flags``."""
+    from blurred_gan_tpu_torch.models.dcgan import celeba_discriminator, celeba_generator
+    from blurred_gan_tpu_torch.train.state import GAN
+    from blurred_gan_tpu_torch.train_celeba import network_dtypes, parse_args
+
+    dtypes = network_dtypes(parse_args([f"--{k}" for k in flags]))
+    return GAN(celeba_generator(RES, **dtypes["generator"]),
+               celeba_discriminator(RES, **dtypes["discriminator"]), blurred=True)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+@contextlib.contextmanager
+def recorded_dtypes(gan):
+    """Forward hooks recording the output dtypes of the generator's first
+    convolution, first BatchNorm and output (the fakes), and of the critic's
+    first convolution and output (the scores): yields ``{what: set}``."""
+    modules = {"first conv": gan.generator.ups[0].conv, "BatchNorm": gan.generator.bns[0],
+               "fakes": gan.generator, "critic conv": gan.discriminator.convs[0],
+               "scores": gan.discriminator}
+    seen = {k: set() for k in modules}
+    handles = [m.register_forward_hook(
+        lambda mod, args, out, k=k: seen[k].add(dtype_name(out.dtype)))
+        for k, m in modules.items()]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def expected_dtypes(flags):
+    low = "bfloat16" if flags.get("bf16") else "float32"
+    fast = "bfloat16" if flags.get("fast_gen") and flags.get("bf16") else "float32"
+    return {"first conv": {low}, "BatchNorm": {fast}, "fakes": {fast}, "critic conv": {low},
+            "scores": {"float32"}}
+
+
+@contextlib.contextmanager
+def recorded_critic_grad_norms(state):
+    """The norm of each critic gradient handed to its optimizer: yields the list."""
+    from blurred_gan_tpu_torch.train import step as step_mod
+
+    norms = []
+    apply = step_mod._apply
+
+    def recording(opt, params, grads):
+        if opt is state.d_opt:
+            norms.append(float(torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))))
+        apply(opt, params, grads)
+
+    step_mod._apply = recording
+    try:
+        yield norms
+    finally:
+        step_mod._apply = apply
+
+
+def bf16_fit(blur_cuda, workdir, name, flags):
+    """Phase 13a: ``fit`` through the entry point with ``flags``. Returns the
+    kernel's launches."""
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    trainer, total = build_trainer(
+        smoke_args(os.path.join(workdir, f"bf16_{name}"), sample_grid_every=0,
+                   checkpoint_every=0, save_image_summaries_interval=0, **flags), feeders=[])
+    per_step = count_step_launches(blur_cuda, trainer)
+    blur_cuda.launch_count = 0
+    with recorded_dtypes(trainer.gan) as seen:
+        trainer.fit(total_examples=total, max_steps=STEPS)
+        torch.cuda.synchronize()
+    launches = blur_cuda.launch_count
+    history = list(trainer.history)
+    check_history(trainer, history, f"phase 13 {name}")
+    if per_step != [6] * STEPS or launches != 6 * STEPS:
+        raise RuntimeError(f"phase 13 {name}: kernel launches per step {per_step}, {launches} "
+                           f"in all; want 6 a step")
+    want = expected_dtypes(flags)
+    if seen != want:
+        raise RuntimeError(f"phase 13 {name}: dtypes {seen}, want {want}")
+    log(f"[bf16] {name}: {STEPS} steps of Trainer.fit through build_trainer: d_loss "
+        f"{history[0]['disc_loss']:+.4f} -> {history[-1]['disc_loss']:+.4f}, sigma "
+        f"{history[0]['std']:.4f} -> {history[-1]['std']:.4f}, {launches} kernel launches (6 per "
+        f"step); dtypes " + ", ".join(f"{k} {'/'.join(sorted(v))}" for k, v in seen.items()))
+    trainer.close()
+    return launches
+
+
+def bf16_first_steps(workdir, reals):
+    """Phase 13b/c: the first step of fresh entry-point trainers from the
+    same weights and draws: each bfloat16 configuration with the kernel and
+    with the plain blur, and float32 with the kernel. Returns
+    ``{(name, impl): (losses, critic gradient norm)}``."""
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    out = {}
+    for name, flags in PRECISIONS:
+        for impl in (("cuda",) if name == "float32" else ("cuda", "torch")):
+            trainer, _ = build_trainer(smoke_args(os.path.join(workdir, f"first_{name}_{impl}"),
+                                                  **flags), feeders=[])
+            trainer.gan.blur_impl = impl
+            with recorded_critic_grad_norms(trainer.state) as norms:
+                metrics, _ = trainer.step_fn(trainer.state, reals, SIGMA0)
+                out[name, impl] = ({k: float(v) for k, v in metrics.items()}, norms[0])
+            trainer.close()
+    return out
+
+
+def check_bf16_steps(first):
+    """Phase 13b/c on :func:`bf16_first_steps`'s results."""
+    keys = ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores", "real_scores")
+    f32, f32_norm = first["float32", "cuda"]
+    for name, _ in PRECISIONS[1:]:
+        (kern, kern_norm), (plain, plain_norm) = first[name, "cuda"], first[name, "torch"]
+        for k in keys:
+            if not math.isclose(kern[k], plain[k], rel_tol=BF16_STEP_TOL["rtol"],
+                                abs_tol=BF16_STEP_TOL["atol"]):
+                raise RuntimeError(f"phase 13 {name}, first step {k}: kernel {kern[k]} vs plain "
+                                   f"{plain[k]}")
+        rel = {k: abs(kern[k] - f32[k]) / max(abs(f32[k]), 1e-12) for k in keys}
+        rel["critic grad norm"] = abs(kern_norm - f32_norm) / f32_norm
+        pairs = dict({k: (kern[k], f32[k]) for k in keys},
+                     **{"critic grad norm": (kern_norm, f32_norm)})
+        for k, (a, b) in pairs.items():
+            if not (math.isfinite(a) and abs(a - b) <= GROSS_REL * abs(b) + GROSS_ABS):
+                raise RuntimeError(f"phase 13 {name}: {k} {a} against float32's {b}")
+        log(f"[bf16] {name}, first step, kernel vs plain blur: " + ", ".join(
+            f"{k} {kern[k]:+.6f}/{plain[k]:+.6f}" for k in ("disc_loss", "gen_loss", "gp_term"))
+            + f", critic grad norm {kern_norm:.6f}/{plain_norm:.6f} (tolerance rtol "
+            f"{BF16_STEP_TOL['rtol']}, atol {BF16_STEP_TOL['atol']})")
+        log(f"[bf16] {name} against float32, first step from the same weights and draws, "
+            f"relative difference: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f" (float32: d_loss {f32['disc_loss']:+.6f}, gen_loss {f32['gen_loss']:+.6f}, "
+            f"critic grad norm {f32_norm:.6f}; bound {GROSS_REL}·|f32| + {GROSS_ABS})")
+
+
+def time_chunk(trainer):
+    """Seconds of one more chunk of the trainer's runner, replayed and
+    synchronised (the host launches only)."""
+    from blurred_gan_tpu_torch.train.fast import chunk_indices
+
+    runner = trainer.chunk_runner
+    k, n = runner.chunk_steps, trainer.state.n_batches
+    idx = chunk_indices(trainer.dataset.num_examples, trainer.hparams.global_batch_size, k, n,
+                        trainer.cfg.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run(idx, n)
+    torch.cuda.synchronize()
+    trainer.state.n_batches += k
+    trainer.state.n_img += k * trainer.hparams.global_batch_size
+    return time.perf_counter() - t0
+
+
+def profile_precision(trainer, name, card):
+    """Phase 13f: one replayed chunk under torch.profiler: the top kernels,
+    the busy share, the blur's and the copy kernels' time (the dtype casts
+    and the layout copies), TFLOP/s. Trains the state on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blurred_gan_tpu_torch.train.fast import chunk_indices
+
+    runner = trainer.chunk_runner
+    k, n = runner.chunk_steps, trainer.state.n_batches
+    idx = chunk_indices(trainer.dataset.num_examples, trainer.hparams.global_batch_size, k, n,
+                        trainer.cfg.seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run(idx, n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trainer.state.n_batches += k
+    trainer.state.n_img += k * trainer.hparams.global_batch_size
+    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        raise RuntimeError(f"phase 13 {name}: the profiler saw no device time in a chunk")
+    busy = sum(r[0] for r in rows)
+    blur = sum(r[0] for r in rows if "blur_planes" in r[1])
+    blur_n = sum(r[2] for r in rows if "blur_planes" in r[1])
+    # PyTorch's copies (``.to``, ``.contiguous``): float32 has the layout
+    # copies too; ``bfloat16_copy_kernel`` is the float32 -> bfloat16 cast.
+    copies = sum(r[0] for r in rows if "copy_kernel" in r[1])
+    casts = sum(r[0] for r in rows if "bfloat16_copy_kernel" in r[1])
+    # cuDNN's own NCHW <-> NHWC transposes around its NHWC kernels.
+    layout = sum(r[0] for r in rows if "nchwToNhwc" in r[1] or "nhwcToNchw" in r[1])
+    step_s = wall_us / k / 1e6
+    tflops = STEP_FLOPS / step_s / 1e12
+    log(f"[bf16] {name}, profiled chunk of {k} replayed steps: wall {wall_us / k / 1e3:.2f} "
+        f"ms/step, device busy {busy / k / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}% of "
+        f"wall); blur_planes {blur_n / k:.1f} launches, {blur / k:.1f} us/step "
+        f"({100 * blur / busy:.2f}% of busy); copy kernels (dtype casts and layout copies) "
+        f"{copies / k / 1e3:.3f} ms/step ({100 * copies / busy:.1f}%), of which float32 -> "
+        f"bfloat16 casts {casts / k / 1e3:.3f} ms ({100 * casts / busy:.1f}%); cuDNN's NCHW/NHWC "
+        f"transposes {layout / k / 1e3:.3f} ms/step ({100 * layout / busy:.1f}%); {tflops:.1f} "
+        f"TFLOP/s at "
+        f"{STEP_FLOPS / 1e9:.0f} GFLOP/step = {100 * tflops * 1e12 / PEAK_BF16_FLOPS:.2f}% of the "
+        f"dense bf16 peak, {100 * tflops * 1e12 / PEAK_F32_FLOPS:.1f}% of the float32 peak on "
+        f"{card}")
+    for dev, key, count in sorted(rows, reverse=True)[:10]:
+        log(f"[bf16]   {name}: {100 * dev / busy:5.1f}%  {dev / k / 1e3:8.3f} ms/step  "
+            f"x{count // k:<4d} {key[:110]}")
+    return {"blur_us_per_step": blur / k, "blur_launches_per_step": blur_n / k,
+            "blur_share": blur / busy, "copy_ms_per_step": copies / k / 1e3,
+            "copy_share": copies / busy, "cast_ms_per_step": casts / k / 1e3,
+            "cast_share": casts / busy, "layout_ms_per_step": layout / k / 1e3,
+            "layout_share": layout / busy, "busy_ms_per_step": busy / k / 1e3,
+            "busy_share": busy / wall_us, "tflops": tflops}
+
+
+def run_bf16(blur_cuda, dataset, workdir, card, f32_default):
+    """Phase 13. Returns its record for the JSON line."""
+    import gc
+
+    reals = torch.from_numpy(next(dataset.batches(BATCH, seed=1))).to("cuda")
+    fit_launches = {name: bf16_fit(blur_cuda, workdir, name, flags)
+                    for name, flags in PRECISIONS[1:]}
+    check_bf16_steps(bf16_first_steps(workdir, reals))
+    templates = {name: precision_template(flags) for name, flags in PRECISIONS}
+    records = {"float32": f32_default}
+    for name, _ in PRECISIONS[1:]:
+        records[name] = run_variant(blur_cuda, templates[name], dataset, workdir,
+                                    f"{name}_chunked", {}, card, bit_equal=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Chunked and fit images/s in turns, each configuration's graphs
+    # captured anew with cuDNN's default algorithms.
+    trainers = {name: variant_trainer(templates[name], dataset, workdir, f"{name}_turns", {})
+                for name, _ in PRECISIONS}
+    for tr in trainers.values():
+        tr.fit_device_resident(total_examples=10 ** 9, chunk_steps=VARIANT_CHUNK, max_chunks=1)
+    order = [name for name, _ in PRECISIONS]
+    order += order[::-1]
+    chunk_s = {name: [] for name in trainers}
+    for name in order:
+        chunk_s[name].append(time_chunk(trainers[name]))
+    profiles = {name: profile_precision(tr, name, card) for name, tr in trainers.items()}
+    fit_rates = {name: [] for name in trainers}
+    fit_peak = {}
+    for name in order:
+        tr = trainers[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tr.fit(total_examples=10 ** 9, max_steps=BF16_FIT_STEPS)
+        torch.cuda.synchronize()
+        fit_peak.setdefault(name, torch.cuda.max_memory_allocated() - held)
+        fit_rates[name].append(statistics.median(
+            h["images_per_sec"] for h in list(tr.history)[-BF16_FIT_STEPS + 2:]))
+    out = {}
+    for name in trainers:
+        runner_record = records[name]
+        chunked = [VARIANT_CHUNK * BATCH / t for t in chunk_s[name]]
+        out[name] = dict(profiles[name], chunked_img_per_s=statistics.mean(chunked),
+                         chunked_runs=chunked, fit_img_per_s=statistics.mean(fit_rates[name]),
+                         fit_runs=fit_rates[name], fit_peak_bytes=fit_peak[name],
+                         capture_s=trainers[name].chunk_runner.capture_seconds,
+                         graph_bytes=(trainers[name].chunk_runner.capture_reserved[2]
+                                      - trainers[name].chunk_runner.capture_reserved[1]),
+                         fit_launches=fit_launches.get(name),
+                         deterministic_img_per_s=runner_record["deterministic_img_per_s"],
+                         bit_equal_steps=runner_record.get("bit_equal_steps"))
+    base = out["float32"]
+    for name, r in out.items():
+        log(f"[bf16] {name}: chunked {r['chunked_img_per_s']:.1f} img/s "
+            f"({r['chunked_img_per_s'] / base['chunked_img_per_s']:.2f}x float32; runs "
+            f"{', '.join(f'{v:.1f}' for v in r['chunked_runs'])}, chunks of {VARIANT_CHUNK} in "
+            f"turns), fit {r['fit_img_per_s']:.1f} img/s "
+            f"({r['fit_img_per_s'] / base['fit_img_per_s']:.2f}x; runs "
+            f"{', '.join(f'{v:.1f}' for v in r['fit_runs'])}, median of steps 3-{BF16_FIT_STEPS}), "
+            f"deterministic-cuDNN chunked {r['deterministic_img_per_s']:.1f}; capture "
+            f"{r['capture_s']:.2f} s, graph pool +{r['graph_bytes'] / 2**20:.0f} MiB, fit's peak "
+            f"allocated {r['fit_peak_bytes'] / 2**20:.0f} MiB over what was held on {card}")
+    for tr in trainers.values():
+        tr.close()
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    non_jax_check()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
@@ -1370,6 +1689,9 @@ def main():
             mnist_timings = run_mnist(blur_cuda, blur_matrix, device, workdir, card)
         with phase("12 variants"):
             variants = run_variants(blur_cuda, trainer.dataset, workdir, card)
+        with phase("13 bf16"):
+            bf16 = run_bf16(blur_cuda, trainer.dataset, workdir, card,
+                            next(v for v in variants if v["name"] == "default"))
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -1382,7 +1704,7 @@ def main():
         # The library call is the plain version itself: two cuBLAS matmuls.
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
         "planes": headline["planes"], "cases": timings + mnist_timings,
-        "variants": variants}]}), flush=True)
+        "variants": variants, "bf16": bf16}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

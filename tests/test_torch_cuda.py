@@ -9,7 +9,9 @@ suite's conftest (which configures jax):
 
 Tolerances: forward rtol 1e-5 / atol 1e-5 (float32 on both sides, another
 summation order); gradients and grad-of-grad rtol 1e-4 / atol 1e-5, as the CPU
-parity tests; a whole step rtol 1e-4 / atol 1e-4 on its losses.
+parity tests; a whole step rtol 1e-4 / atol 1e-4 on its losses; a whole
+bfloat16 step rtol 1e-2 / atol 1e-3 (``chip_smoke.py``'s: float32 blur outputs
+that differ in the last bits round to bfloat16 differently at a few elements).
 """
 
 import pytest
@@ -25,6 +27,7 @@ from blurred_gan_tpu_torch.train.step import make_train_step
 FWD = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)
 STEP = dict(rtol=1e-4, atol=1e-4)
+BF16_STEP = dict(rtol=1e-2, atol=1e-3)
 
 pytestmark = pytest.mark.cuda
 
@@ -139,26 +142,38 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
                                       torch.eye(wide, device=cuda_device))
 
 
-def test_step_kernel_matches_plain_blur(cuda_device):
+def narrow_gan(blur_impl="auto", compute_dtype=torch.float32, fast_gen=False):
+    """The narrow 16x16x3 pair; ``compute_dtype`` and ``fast_gen`` as the
+    entry point's ``--bf16`` and ``--fast_gen`` set them."""
+    gen_kw = {"bn_dtype": compute_dtype, "output_f32": False} if fast_gen else {}
+    return GAN(DCGANGenerator(latent_size=8, init_features=32, blocks=((32, 1), (16, 2), (8, 2)),
+                              compute_dtype=compute_dtype, **gen_kw),
+               DCGANDiscriminator(channels=(8, 16), in_channels=3, image_hw=(16, 16),
+                                  compute_dtype=compute_dtype),
+               latent_size=8, blur_impl=blur_impl)
+
+
+@pytest.mark.parametrize("compute_dtype,fast_gen,tol", [
+    (torch.float32, False, STEP), (torch.bfloat16, False, BF16_STEP),
+    (torch.bfloat16, True, BF16_STEP)], ids=["float32", "bf16", "bf16+fast_gen"])
+def test_step_kernel_matches_plain_blur(cuda_device, compute_dtype, fast_gen, tol):
     # One narrow step with the kernel and one with the plain blur, from the
     # same weights and the same draws.
     metrics = {}
     launches = {}
     reals = torch.randint(0, 256, (4, 16, 16, 3), dtype=torch.uint8, device=cuda_device)
     for impl in ("cuda", "torch"):
-        gan = GAN(DCGANGenerator(latent_size=8, init_features=32,
-                                 blocks=((32, 1), (16, 2), (8, 2))),
-                  DCGANDiscriminator(channels=(8, 16), in_channels=3, image_hw=(16, 16)),
-                  latent_size=8, blur_impl=impl)
+        gan = narrow_gan(impl, compute_dtype, fast_gen)
         hp = BlurredWGANGPHyperParameters(batch_size=4, global_batch_size=4)
         state = create_train_state(gan, hp, device=cuda_device, seed=0)
         before = blur_cuda.launch_count
-        metrics[impl], _ = make_train_step(gan, hp, seed=0)(state, reals, 1.5)
+        metrics[impl], fakes = make_train_step(gan, hp, seed=0)(state, reals, 1.5)
         torch.cuda.synchronize()
         launches[impl] = blur_cuda.launch_count - before
+        assert fakes.dtype == (compute_dtype if fast_gen else torch.float32)
     assert launches == {"cuda": 6, "torch": 0}
     for k, v in metrics["cuda"].items():
-        torch.testing.assert_close(v, metrics["torch"][k], **STEP, msg=k)
+        torch.testing.assert_close(v, metrics["torch"][k], **tol, msg=k)
 
 
 def test_restore_on_the_card_is_exact_and_keeps_adams_step_on_the_cpu(cuda_device, tmp_path):
@@ -206,14 +221,12 @@ def test_restore_on_the_card_is_exact_and_keeps_adams_step_on_the_cpu(cuda_devic
 # ---------------------------------------------------------------------------
 
 
-def narrow_trainer(device, log_dir, **kw):
+def narrow_trainer(device, log_dir, gan=None, **kw):
     from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
     from blurred_gan_tpu_torch.sched.blur import BlurDecayController
     from blurred_gan_tpu_torch.train.loop import Trainer, TrainerConfig
 
-    gan = GAN(DCGANGenerator(latent_size=8, init_features=32, blocks=((32, 1), (16, 2), (8, 2))),
-              DCGANDiscriminator(channels=(8, 16), in_channels=3, image_hw=(16, 16)),
-              latent_size=8)
+    gan = gan or narrow_gan()
     hp = BlurredWGANGPHyperParameters(batch_size=4, global_batch_size=4)
     if "adaptive_controller" not in kw:
         kw["blur_controller"] = BlurDecayController(640, max_value=1.5)
@@ -240,6 +253,41 @@ def test_chunked_replay_matches_fit(cuda_device, tmp_path):
                   (a.state.discriminator, b.state.discriminator)):
         for (k, v), v2 in zip(m.state_dict().items(), m2.state_dict().values()):
             torch.testing.assert_close(v2, v, rtol=5e-4, atol=5e-5, msg=k)
+
+
+@pytest.mark.parametrize("fast_gen", [False, True], ids=["bf16", "bf16+fast_gen"])
+def test_bf16_captured_step_replays_the_eager_step(cuda_device, tmp_path, fast_gen):
+    # A bfloat16 step captured once and replayed twice against two eager
+    # steps from the same weights, data and draws, with the chunked mode's
+    # capturable Adam and deterministic cuDNN: the same bits.
+    from blurred_gan_tpu_torch.train.state import set_capturable
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = narrow_trainer(cuda_device, tmp_path / "fit",
+                           narrow_gan(compute_dtype=torch.bfloat16, fast_gen=fast_gen))
+        step = a.step_fn
+
+        def capturable_step(state, *args, **kwargs):
+            set_capturable(state.g_opt, True)
+            set_capturable(state.d_opt, True)
+            return step(state, *args, **kwargs)
+
+        a.step_fn = capturable_step
+        a.fit(total_examples=10_000, max_steps=2)
+        b = narrow_trainer(cuda_device, tmp_path / "chunked",
+                           narrow_gan(compute_dtype=torch.bfloat16, fast_gen=fast_gen))
+        b.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=1)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert b.chunk_runner.graph is not None
+    assert b.chunk_runner.fakes.dtype == (torch.bfloat16 if fast_gen else torch.float32)
+    assert len(a.history) == len(b.history) == 2
+    for ha, hb in zip(a.history, b.history):
+        for k in ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores",
+                  "real_scores", "std"):
+            assert hb[k] == ha[k], k
 
 
 def test_replay_draws_follow_the_seed(cuda_device, tmp_path):

@@ -203,7 +203,7 @@ def jax_dataclass_flags() -> set:
 
 @pytest.mark.parametrize("module,script,left_out", [
     (train_mnist, "train_mnist.py", set()),
-    (train_celeba, "train_celeba.py", {"--bf16", "--fast_gen"})])
+    (train_celeba, "train_celeba.py", set())])
 def test_flags_equal_the_root_scripts(module, script, left_out):
     want = (script_flags(REPO / script) | jax_dataclass_flags()) - left_out
     assert "--device_resident" in want and "--chunk_steps" in want

@@ -8,7 +8,9 @@ weights (``convert.flax_state_to_torch``) with the JAX step's own draws pinned
 through ``noise``, from its first step or from the JAX state (weights, Adam
 moments, counters) before a later one; the JAX gradients of one step rebuilt
 from the package's loss functions; and the checks at ``test_torch_step.py``'s
-tolerances.
+tolerances. ``compute_dtype`` (``"float32"`` or ``"bfloat16"``) and
+``fast_gen`` build both sides' networks as the entry points' ``--bf16`` and
+``--fast_gen`` do (``tests/test_torch_bf16.py``).
 """
 
 import copy
@@ -29,9 +31,10 @@ from blurred_gan_tpu.train.config import (
 from blurred_gan_tpu.train.state import GAN as JaxGAN, create_train_state as jax_state
 from blurred_gan_tpu.train.step import make_train_step as jax_step
 from blurred_gan_tpu_torch.convert import flax_state_to_torch, flax_to_torch
+from blurred_gan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
 from blurred_gan_tpu_torch.train import step as step_mod
 from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters, WGANHyperParameters
-from blurred_gan_tpu_torch.train.state import create_train_state
+from blurred_gan_tpu_torch.train.state import GAN, create_train_state
 from blurred_gan_tpu_torch.train.step import make_train_step
 from test_torch_step import (
     B, D_CHANNELS, G_KW, GRAD, GRAD_FLOOR, LATENT, LOSS, PARAM_ATOL, RES, SIGMA, STATS,
@@ -52,9 +55,26 @@ def jax_hparams(penalty_free: bool = False, **kw):
     return cls(batch_size=B, global_batch_size=B, **kw)
 
 
-def jax_gan():
-    return JaxGAN(JaxG(**G_KW), JaxD(channels=D_CHANNELS, dropout_rate=0.0),
+def jax_gan(compute_dtype: str = "float32", fast_gen: bool = False):
+    """The JAX GAN; ``compute_dtype`` and ``fast_gen`` as the root
+    ``train_celeba.py`` applies ``--bf16`` and ``--fast_gen``."""
+    dt = jnp.dtype(compute_dtype)
+    gen_kw = {"bn_dtype": dt, "output_f32": False} if fast_gen and dt != jnp.float32 else {}
+    return JaxGAN(JaxG(**G_KW, compute_dtype=dt, **gen_kw),
+                  JaxD(channels=D_CHANNELS, dropout_rate=0.0, compute_dtype=dt),
                   latent_size=LATENT, blurred=True)
+
+
+def port_gan(compute_dtype: str = "float32", fast_gen: bool = False):
+    """The port's GAN of :func:`jax_gan`'s configuration."""
+    dt = getattr(torch, compute_dtype)
+    if dt == torch.float32:
+        return torch_gan()
+    gen_kw = {"bn_dtype": dt, "output_f32": False} if fast_gen else {}
+    return GAN(DCGANGenerator(**G_KW, compute_dtype=dt, **gen_kw),
+               DCGANDiscriminator(channels=D_CHANNELS, dropout_rate=0.0, in_channels=3,
+                                  image_hw=(RES, RES), compute_dtype=dt),
+               latent_size=LATENT)
 
 
 def reals_batches(n: int):
@@ -76,12 +96,30 @@ def jax_draws(key, flip: bool):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-@functools.lru_cache(maxsize=None)
-def jax_run(n_steps: int, n0: int = 0, penalty_free: bool = False, **kw):
+def exact_rounding(fn, compute_dtype: str, *args):
+    """The jitted ``fn`` as called on ``args``; off float32 compiled without
+    XLA's excess precision, so that every bfloat16 value is rounded where the
+    JAX package's dtypes put it (the CPU compiler's fusions otherwise keep
+    some in float32, which neither the port nor the dtypes do)."""
+    if compute_dtype == "float32":
+        return fn
+    return fn.lower(*args).compile(compiler_options={"xla_allow_excess_precision": False})
+
+
+def jax_run(n_steps: int, n0: int = 0, penalty_free: bool = False,
+            compute_dtype: str = "float32", fast_gen: bool = False, **kw):
     """``(states, metrics, draws)`` of ``n_steps`` JAX steps from the initial
-    state with its batch counter set to ``n0``; ``states[0]`` is the start."""
+    state with its batch counter set to ``n0``; ``states[0]`` is the start.
+    One run per configuration, however the arguments are spelled."""
+    return _jax_run(n_steps, n0, penalty_free, compute_dtype, fast_gen,
+                    tuple(sorted(kw.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(n_steps, n0, penalty_free, compute_dtype, fast_gen, kw):
+    kw = dict(kw)
     hp = jax_hparams(penalty_free, **kw)
-    jgan = jax_gan()
+    jgan = jax_gan(compute_dtype, fast_gen)
     state = jax_state(jgan, hp, jax.random.PRNGKey(3), (RES, RES, 3))
     state = state.replace(n_batches=jnp.asarray(n0, jnp.int32))
     state = jax.tree_util.tree_map(np.asarray, state)
@@ -89,7 +127,10 @@ def jax_run(n_steps: int, n0: int = 0, penalty_free: bool = False, **kw):
     states, metrics, draws = [state], [], []
     for i, reals in enumerate(reals_batches(n_steps)):
         key = jax.random.PRNGKey(KEY0 + i)
-        state, m, _ = step(state, jnp.asarray(reals), jnp.float32(SIGMA), key)
+        args = (state, jnp.asarray(reals), jnp.float32(SIGMA), key)
+        if i == 0:
+            step = exact_rounding(step, compute_dtype, *args)
+        state, m, _ = step(*args)
         states.append(jax.tree_util.tree_map(np.asarray, state))
         metrics.append({k: float(v) for k, v in m.items()})
         draws.append(jax_draws(key, bool(kw.get("flip_augment"))))
@@ -115,14 +156,16 @@ def load_jax_state(state, jstate) -> None:
 
 
 def port_run(n_steps: int, n0: int = 0, penalty_free: bool = False, first: int = 0,
-             total: Optional[int] = None, **kw):
+             total: Optional[int] = None, compute_dtype: str = "float32",
+             fast_gen: bool = False, **kw):
     """The port's run of steps ``first`` to ``first + n_steps - 1`` of
     :func:`jax_run` (of ``total`` steps) from the JAX state before step
     ``first``: ``(gan, state, metrics, grads)``, ``grads`` per step ``{"d":
     [...], "g": [...]}`` as handed to the optimizers (``g`` absent on a step
     that skips the generator)."""
-    states, _, draws = jax_run(total or first + n_steps, n0, penalty_free, **kw)
-    gan = torch_gan()
+    states, _, draws = jax_run(total or first + n_steps, n0, penalty_free, compute_dtype,
+                               fast_gen, **kw)
+    gan = port_gan(compute_dtype, fast_gen)
     state = create_train_state(gan, hparams(penalty_free, **kw), device="cpu")
     load_jax_state(state, states[first])
     step = make_train_step(gan, hparams(penalty_free, **kw))
@@ -146,13 +189,13 @@ def port_run(n_steps: int, n0: int = 0, penalty_free: bool = False, first: int =
 
 
 def jax_grads(jstate0, jstate1, reals, draws, *, gp_coefficient, with_gp, accum=1,
-              e_drift=1e-4, gen=True):
+              e_drift=1e-4, gen=True, compute_dtype: str = "float32", fast_gen: bool = False):
     """The JAX gradients of one step, rebuilt from the package's losses:
     the critic's from ``jstate0`` on the (flipped) reals, the generator's
     through ``jstate1``'s critic; each the sum over ``accum`` microbatches
     with the penalty and drift scaled by 1/``accum``. In the port's
     parameter layout."""
-    jgan = jax_gan()
+    jgan = jax_gan(compute_dtype, fast_gen)
     x = (jnp.asarray(reals).astype(jnp.float32) - 127.5) / 127.5
     if "flip" in draws:
         x = jnp.where(draws["flip"][:, None, None, None], x[:, :, ::-1, :], x)
@@ -183,9 +226,14 @@ def jax_grads(jstate0, jstate1, reals, draws, *, gp_coefficient, with_gp, accum=
                                        float(B))
         return total
 
-    out = {"d": to_torch_layout(torch_gan().discriminator, jax.grad(d_loss)(jstate0.d_params))}
+    def grad(loss, params):
+        if compute_dtype == "float32":  # op by op, as before
+            return jax.grad(loss)(params)
+        return exact_rounding(jax.jit(jax.grad(loss)), compute_dtype, params)(params)
+
+    out = {"d": to_torch_layout(torch_gan().discriminator, grad(d_loss, jstate0.d_params))}
     if gen:
-        out["g"] = to_torch_layout(torch_gan().generator, jax.grad(g_loss)(jstate0.g_params))
+        out["g"] = to_torch_layout(torch_gan().generator, grad(g_loss, jstate0.g_params))
     return out
 
 
