@@ -56,14 +56,21 @@ def add_common_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", type=str, default="cuda")
 
 
-def setup(args: argparse.Namespace):
-    """(device, hparams, config) for parsed ``args``: refuses a missing card,
-    sets float32 precision, sizes the batch for one device and makes the
-    ``--run_name`` directory."""
-    device = torch.device(args.device)
+def setup_device(name: str) -> torch.device:
+    """The ``--device`` of an entry point or tool: a missing card is refused,
+    never replaced by the CPU; float32 precision is set."""
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch finds no CUDA device")
     set_float32_precision()
+    return device
+
+
+def setup(args: argparse.Namespace):
+    """(device, hparams, config) for parsed ``args``: the device
+    (:func:`setup_device`), the batch sized for one device and the
+    ``--run_name`` directory."""
+    device = setup_device(args.device)
     hparams = BlurredWGANGPHyperParameters.from_args(args)
     hparams.global_batch_size = hparams.batch_size  # one device
     config = TrainingConfig.from_args(args)

@@ -54,6 +54,12 @@ class MetricsLogger:
             self._tb.add_hparams({k: v for k, v in hparams.items()
                                   if isinstance(v, (int, float, str, bool))}, {})
 
+    def text(self, step: int, tag: str, text: str) -> None:
+        """One record ``{"step": step, tag: text}`` (and a TensorBoard text summary)."""
+        self._jsonl.write(json.dumps({"step": int(step), tag: text}) + "\n")
+        if self._tb is not None:
+            self._tb.add_text(tag, text, int(step))
+
     def flush(self) -> None:
         self._jsonl.flush()
         if self._tb is not None:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CelebA-128 blurred WGAN-GP training path on one CUDA GPU.
+"""Drive the PyTorch port's CelebA-128 blurred WGAN-GP training and serving on one CUDA GPU.
 
 Run from the root of the repository, with no arguments:
 
@@ -86,6 +86,21 @@ Phases, each of which raises on failure:
     ``--bf16 --fast_gen``, capture seconds, the graphs' pools and ``fit``'s
     peak; and a profile of a replayed chunk of each (top kernels, busy share,
     the blur's and the copies' share, TFLOP/s);
+14. serving, on phase 7's run directory: ``generate_samples.main`` in this
+    process writes the 64-image grid blurred at σ 0.5 with one kernel launch,
+    held against the plain blur of the same samples, and the kernel is timed
+    at that shape and σ; KID and PRDC on the card against the CPU on a small
+    input; then, each in a process of its own and all at once, ``python -m
+    blurred_gan_tpu_torch.generate_samples`` (the random grid, the
+    ``--interpolate`` grid, ``--blur_std``, and ``--ema``, which must exit
+    with its message), ``tools.export_generator`` (its own check at batches 1
+    and 7), ``tools.evaluate_run`` at its defaults and ``tools.score --kid
+    --prdc`` on 1000 samples against 1000 reals; a ``python -c`` that imports
+    torch alone serves the artifact at batches 1, 7 and 128, held against the
+    live generator, as is the artifact moved to the CPU; an EMA artifact of a
+    2-step ``--ema_decay 0.999`` run against ``make_sample_fn(use_ema=True)``;
+    the generator's FLOPs per image, and its images/s at batches 128 and 32,
+    eager and the artifact in turns, with their peak memory;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -163,6 +178,15 @@ GROSS_REL, GROSS_ABS = 0.25, 1e-3
 BF16_FIT_STEPS = 24
 STEP_FLOPS, PEAK_BF16_FLOPS = 167e9, 989e12
 
+
+# Phase 14: the grid's σ (generate_samples --blur_std) and its sample count;
+# the inference batches (bench.py --infer's 128, and the training batch) and
+# calls per timing; the scoring CLIs' sample count; the artifact against the
+# live generator (the export tool's own tolerance).
+SERVE_SIGMA, SERVE_GRID = 0.5, 64
+SERVE_BATCHES, SERVE_CALLS = (128, 32), 25
+SERVE_SAMPLES = 1000
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1626,6 +1650,313 @@ def run_bf16(blur_cuda, dataset, workdir, card, f32_default):
     return out
 
 
+SERVE_CHILD = """
+import sys
+import torch
+# float32 as the port computes it: cuDNN's default allows TF32 in convolutions.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+program = torch.export.load(sys.argv[1])
+serve = program.module()
+latents = torch.load(sys.argv[2])
+with torch.no_grad():
+    out = {b: serve(z.to("cuda")).cpu() for b, z in latents.items()}
+torch.save(out, sys.argv[3])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("blurred_gan_tpu_torch", "blurred_gan_tpu", "jax"))
+if loaded:
+    raise SystemExit(f"the serving process imported {loaded}")
+print("served batches", sorted(out), "with torch alone")
+"""
+
+
+def run_processes(jobs, workdir, timeout=900.0):
+    """Run each job, ``name: (python arguments, working directory, the job it
+    waits for or None)``, in a process of its own with its output in
+    ``workdir/<name>.log``: those that wait for none at once, each other one
+    when the job it waits for has exited with 0. Returns {name: (exit code,
+    or None if it never started; output; seconds)}. Every process has ended
+    when it returns."""
+    procs, done = {}, {}
+
+    def start(name):
+        argv, cwd, _ = jobs[name]
+        f = open(os.path.join(workdir, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen([sys.executable, *argv], cwd=cwd, stdout=f,
+                                        stderr=subprocess.STDOUT), f, time.perf_counter())
+
+    try:
+        for name, (_, _, after) in jobs.items():
+            if after is None:
+                start(name)
+        deadline = time.perf_counter() + timeout
+        while len(done) < len(jobs):
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"phase 14: {sorted(set(jobs) - set(done))} not done "
+                                   f"after {timeout:.0f} s")
+            for name, (p, f, t0) in list(procs.items()):
+                if name in done or p.poll() is None:
+                    continue
+                done[name] = (p.returncode, time.perf_counter() - t0)
+                for waiting, (_, _, after) in jobs.items():
+                    if after == name and p.returncode == 0:
+                        start(waiting)
+                    elif after == name:
+                        done[waiting] = (None, 0.0)
+            time.sleep(0.1)
+    finally:
+        for p, f, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    out = {}
+    for name, (rc, seconds) in done.items():
+        output = f"not started: {jobs[name][2]} failed"
+        if rc is not None:
+            with open(os.path.join(workdir, f"{name}.log")) as f:
+                output = f.read()
+        out[name] = (rc, output, seconds)
+    return out
+
+
+def last_json(output: str) -> dict:
+    return json.loads(output.strip().splitlines()[-1])
+
+
+def generator_flops_per_image(latent_size: int) -> float:
+    """FLOPs of the CelebA-128 generator per image, counted by
+    ``torch.utils.flop_counter`` at batch 2 on the CPU."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from blurred_gan_tpu_torch.models.dcgan import celeba_generator, init_weights
+
+    gen = init_weights(celeba_generator(RES), torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        gen(torch.rand(2, latent_size))
+    return counter.get_total_flops() / 2
+
+
+def serving_speed(gan, state, artifact, card):
+    """Generator images/s at each of ``SERVE_BATCHES``, eager ``make_sample_fn``
+    and the loaded artifact in turns: the median of ``SERVE_CALLS``
+    synchronised calls, float32 without TF32; and each one's peak device
+    memory over what was held."""
+    from blurred_gan_tpu_torch.serving import load_generator
+    from blurred_gan_tpu_torch.train.step import make_sample_fn
+
+    sample = make_sample_fn(gan)
+    fns = {"eager": lambda z: sample(state, z), "artifact": load_generator(artifact)}
+    out = {}
+    for b in SERVE_BATCHES:
+        z = gan.sample_latents(b, torch.Generator().manual_seed(11), "cpu").to("cuda")
+        runs, peaks = {name: [] for name in fns}, {}
+        for name in ("eager", "artifact", "artifact", "eager"):
+            for _ in range(3):
+                fns[name](z)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            times = []
+            for _ in range(SERVE_CALLS):
+                t0 = time.perf_counter()
+                fns[name](z)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            runs[name].append(b / statistics.median(times))
+            peaks.setdefault(name, torch.cuda.max_memory_allocated() - held)
+        out[f"b{b}"] = {f"{name}_img_per_s": statistics.mean(r) for name, r in runs.items()}
+        out[f"b{b}"].update({f"{name}_runs": r for name, r in runs.items()})
+        out[f"b{b}"].update({f"{name}_peak_bytes": v for name, v in peaks.items()})
+    return out
+
+
+def run_serving(blur_cuda, blur_matrix, full_args, dataset, workdir, card):
+    """Phase 14: the serving side on phase 7's run directory. Returns its
+    record for the JSON line."""
+    import numpy as np
+
+    from blurred_gan_tpu_torch import generate_samples
+    from blurred_gan_tpu_torch.metrics.fid import random_conv_features
+    from blurred_gan_tpu_torch.metrics.kid import kid
+    from blurred_gan_tpu_torch.metrics.prdc import prdc
+    from blurred_gan_tpu_torch.serving import export_generator, load_generator
+    from blurred_gan_tpu_torch.train.loop import to_unit_range
+    from blurred_gan_tpu_torch.train.step import make_sample_fn
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    run_dir, device = full_args.log_dir, torch.device("cuda")
+    side = 8 * (RES + 2) + 2
+
+    # The sampling path through the entry point, its kernel launches counted,
+    # then the same latents through the plain blur.
+    grid_png = os.path.join(workdir, "serve_grid.png")
+    argv = ["--log_dir", run_dir, "--device", "cuda", "--n", str(SERVE_GRID),
+            "--blur_std", str(SERVE_SIGMA), "--out", grid_png]
+    blur_cuda.launch_count = 0
+    blurred = generate_samples.main(argv)
+    torch.cuda.synchronize()
+    launches = blur_cuda.launch_count
+    if launches != 1:
+        raise RuntimeError(f"phase 14: {launches} blur launches for one blurred grid")
+    if png_size(grid_png) != (side, side):
+        raise RuntimeError(f"phase 14: grid of {png_size(grid_png)}, want {side}x{side}")
+    gan, state, step = generate_samples.restore_run(run_dir, "celeba", RES, device)
+    latents = generate_samples.grid_latents(gan, generate_samples.parse_args(argv))[0].to(device)
+    plain = generate_samples.sample_images(gan, state, latents, blur_std=SERVE_SIGMA,
+                                           blur_impl="torch")
+    torch.testing.assert_close(blurred, plain, **FWD_TOL,
+                               msg=lambda m: f"phase 14, the grid's blur vs plain: {m}")
+    grid_err = float((blurred - plain).abs().max())
+    timing = time_blur(blur_cuda, blur_matrix, device, 3 * SERVE_GRID, SERVE_SIGMA, card)
+
+    # KID and PRDC on the card against the CPU, on a small input: 200 reals
+    # against 200 other reals with noise (the samples of a 12-step generator
+    # lie off the reals' manifold, where PRDC is 0 on both).
+    feature_fn = random_conv_features((3, RES, RES), dim=256, device=device)
+    reals = to_unit_range(torch.from_numpy(dataset.images[:400]).to(device))
+    noise = torch.randn(reals[200:].shape, generator=torch.Generator().manual_seed(5))
+    fr, ff = feature_fn(reals[:200]), feature_fn(reals[200:] + 0.2 * noise.to(device))
+    on = {dev: {**kid(fr.to(dev), ff.to(dev), n_subsets=10, subset_size=100),
+                **prdc(fr.to(dev), ff.to(dev), k=5)} for dev in ("cuda", "cpu")}
+    for k, v in on["cpu"].items():
+        if not math.isclose(on["cuda"][k], v, rel_tol=METRIC_TOL["rtol"],
+                            abs_tol=METRIC_TOL["atol"]):
+            raise RuntimeError(f"phase 14: {k} on the card {on['cuda'][k]} vs the CPU {v}")
+
+    # The CLIs, all at once, each in a process of its own.
+    data_dir = os.path.join(workdir, "serve_data")
+    os.makedirs(data_dir, exist_ok=True)
+    np.save(os.path.join(data_dir, "shard-00000.npy"), dataset.images)
+    rng = torch.Generator().manual_seed(7)
+    fakes = torch.cat([generate_samples.sample_images(
+        gan, state, gan.sample_latents(100, rng, "cpu").to(device))
+        for _ in range(SERVE_SAMPLES // 100)])
+    reals_npz, fakes_npz = (os.path.join(workdir, f"{n}.npz") for n in ("reals", "fakes"))
+    np.savez(fakes_npz, samples=((fakes.permute(0, 2, 3, 1) + 1.0) * 127.5).round()
+             .clamp(0, 255).to(torch.uint8).cpu().numpy())
+    np.savez(reals_npz, samples=dataset.images[-SERVE_SAMPLES:])
+    artifact = os.path.join(workdir, "generator.pt2")
+    pngs = {name: os.path.join(workdir, f"serve_{name}.png")
+            for name in ("random", "interpolate", "blur", "ema")}
+    # Latents of the server that imports torch alone, started when the
+    # export tool has written the artifact.
+    lat = {b: gan.sample_latents(b, torch.Generator().manual_seed(b), "cpu") for b in (1, 7, 128)}
+    lat_path, served_path = (os.path.join(workdir, n) for n in ("latents.pt", "served.pt"))
+    torch.save(lat, lat_path)
+    gs = ["-m", "blurred_gan_tpu_torch.generate_samples", "--log_dir", run_dir]
+    results = run_processes({
+        "sample_random": (gs + ["--out", pngs["random"]], HERE, None),
+        "sample_interpolate": (gs + ["--interpolate", "--rows", "4", "--steps", "6",
+                                     "--out", pngs["interpolate"]], HERE, None),
+        "sample_blur": (gs + ["--blur_std", str(SERVE_SIGMA), "--out", pngs["blur"]], HERE,
+                        None),
+        "sample_ema": (gs + ["--ema", "--out", pngs["ema"]], HERE, None),
+        "export": (["-m", "blurred_gan_tpu_torch.tools.export_generator", "--log_dir", run_dir,
+                    "--out", artifact, "--verify_batches", "1,7"], HERE, None),
+        "serve_torch_only": (["-c", SERVE_CHILD, artifact, lat_path, served_path], workdir,
+                             "export"),
+        "evaluate_run": (["-m", "blurred_gan_tpu_torch.tools.evaluate_run", "--log_dir",
+                          run_dir, "--data_path", data_dir], HERE, None),
+        "score": (["-m", "blurred_gan_tpu_torch.tools.score", "--real", reals_npz,
+                   "--fake", fakes_npz, "--kid", "--prdc"], HERE, None),
+    }, workdir)
+    for name, (rc, output, _) in results.items():
+        if (rc != 0) != (name == "sample_ema"):
+            raise RuntimeError(f"phase 14, {name}: exit code {rc}\n{output[-3000:]}")
+    ema_msg = "--ema: this run has no EMA weights (train with --ema_decay > 0)"
+    if ema_msg not in results["sample_ema"][1] or os.path.exists(pngs["ema"]):
+        raise RuntimeError(f"phase 14, sample_ema: {results['sample_ema'][1][-2000:]}")
+    want_sizes = {"random": (side, side), "blur": (side, side),
+                  "interpolate": (6 * (RES + 2) + 2, 4 * (RES + 2) + 2)}
+    for name, size in want_sizes.items():
+        if png_size(pngs[name]) != size:
+            raise RuntimeError(f"phase 14: {name} grid of {png_size(pngs[name])}, want {size}")
+    if not all(f"verified batch {b}:" in results["export"][1] for b in (1, 7)):
+        raise RuntimeError(f"phase 14, export: {results['export'][1][-2000:]}")
+    evaluated = last_json(results["evaluate_run"][1])
+    scored = last_json(results["score"][1])
+    if evaluated["examples_seen"] != step or not all(
+            math.isfinite(v) for k, v in evaluated.items()):
+        raise RuntimeError(f"phase 14, evaluate_run: {evaluated}")
+    score_keys = ("fid_randconv", "SWDx1e3_avg", "precision", "recall", "density",
+                  "coverage", "kid", "kid_std")
+    if scored["n_images"] != SERVE_SAMPLES or not all(
+            math.isfinite(scored[k]) for k in score_keys):
+        raise RuntimeError(f"phase 14, score: {scored}")
+
+    # The artifact as the process that imported torch alone served it.
+    served = torch.load(served_path)
+    sample = make_sample_fn(gan)
+    serve_err = 0.0
+    for b, z in lat.items():
+        want = sample(state, z.to(device)).cpu()
+        torch.testing.assert_close(served[b], want, **SERVE_TOL,
+                                   msg=lambda m: f"phase 14, the artifact at batch {b}: {m}")
+        serve_err = max(serve_err, float((served[b] - want).abs().max()))
+    # The same artifact moved to the CPU and served there.
+    moved = load_generator(artifact, device="cpu")(lat[7])
+    want = sample(state, lat[7].to(device)).cpu()
+    torch.testing.assert_close(moved, want, **SERVE_TOL,
+                               msg=lambda m: f"phase 14, the artifact moved to the CPU: {m}")
+    moved_err = float((moved - want).abs().max())
+
+    # The average baked into an artifact: a 2-step --ema_decay 0.999 run.
+    ema_args = smoke_args(os.path.join(workdir, "serve_ema"), ema_decay=0.999,
+                          sample_grid_every=0, checkpoint_every=0,
+                          save_image_summaries_interval=0)
+    ema_trainer, total = build_trainer(ema_args, feeders=[])
+    ema_trainer.fit(total_examples=total, max_steps=2)
+    z7 = lat[7].to(device)
+    got = load_generator(export_generator(ema_trainer.gan, ema_trainer.state, use_ema=True))(z7)
+    want = make_sample_fn(ema_trainer.gan, use_ema=True)(ema_trainer.state, z7)
+    live = make_sample_fn(ema_trainer.gan)(ema_trainer.state, z7)
+    torch.testing.assert_close(got, want, **SERVE_TOL,
+                               msg=lambda m: f"phase 14, the EMA artifact: {m}")
+    if torch.allclose(got, live):
+        raise RuntimeError("phase 14: the EMA artifact equals the live weights")
+    ema_err, ema_gap = float((got - want).abs().max()), float((got - live).abs().max())
+    ema_trainer.close()
+    del ema_trainer
+
+    flops = generator_flops_per_image(gan.latent_size)
+    speed = serving_speed(gan, state, artifact, card)
+    non_jax_check()
+
+    log(f"[serving] the entry point's {SERVE_GRID}-image grid at sigma {SERVE_SIGMA}: "
+        f"{launches} kernel launch, max |kernel - plain| {grid_err:.2e}; card vs CPU on 200 "
+        f"pairs of 256-d features: " + ", ".join(f"{k} {on['cuda'][k]:.6f}/{v:.6f}"
+                                                  for k, v in on["cpu"].items())
+        + f" on {card}")
+    log(f"[serving] CLIs at once ({', '.join(f'{n} {r[2]:.1f} s' for n, r in results.items())}); "
+        f"evaluate_run {json.dumps(evaluated)}; score {json.dumps(scored)}")
+    log(f"[serving] artifact {os.path.getsize(artifact) / 1e6:.1f} MB, served with torch alone "
+        f"at batches {sorted(lat)}, max |artifact - live| {serve_err:.2e} "
+        f"(moved to the CPU, batch 7: {moved_err:.2e}); "
+        f"EMA artifact vs make_sample_fn(use_ema=True) {ema_err:.2e}, vs the live weights "
+        f"{ema_gap:.2e}")
+    for b, r in speed.items():
+        log(f"[serving] CelebA-{RES} generator {b} float32: eager {r['eager_img_per_s']:.1f} "
+            f"img/s (runs {', '.join(f'{v:.1f}' for v in r['eager_runs'])}), artifact "
+            f"{r['artifact_img_per_s']:.1f} (runs "
+            f"{', '.join(f'{v:.1f}' for v in r['artifact_runs'])}); "
+            f"{flops * r['eager_img_per_s'] / 1e12:.2f} / "
+            f"{flops * r['artifact_img_per_s'] / 1e12:.2f} TFLOP/s at {flops / 1e9:.2f} "
+            f"GFLOP/image = {100 * flops * r['eager_img_per_s'] / PEAK_F32_FLOPS:.1f} / "
+            f"{100 * flops * r['artifact_img_per_s'] / PEAK_F32_FLOPS:.1f}% of the float32 "
+            f"peak; peak allocated {r['eager_peak_bytes'] / 2**20:.0f} / "
+            f"{r['artifact_peak_bytes'] / 2**20:.0f} MiB over what was held on {card}")
+    return {"launches": launches, "max_abs_err": grid_err, "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": timing["plain_ms"],
+            "planes": timing["planes"], "sigma": SERVE_SIGMA,
+            "flops_per_image": flops, "inference": speed,
+            "artifact_max_abs_err": serve_err, "moved_to_cpu_max_abs_err": moved_err,
+            "ema_artifact_max_abs_err": ema_err,
+            "card_vs_cpu": on, "evaluate_run": evaluated, "score": scored,
+            "cli_seconds": {n: r[2] for n, r in results.items()}}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
@@ -1692,6 +2023,9 @@ def main():
         with phase("13 bf16"):
             bf16 = run_bf16(blur_cuda, trainer.dataset, workdir, card,
                             next(v for v in variants if v["name"] == "default"))
+        with phase("14 serving"):
+            serving = run_serving(blur_cuda, blur_matrix, full_args, trainer.dataset,
+                                  workdir, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -1704,7 +2038,7 @@ def main():
         # The library call is the plain version itself: two cuBLAS matmuls.
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
         "planes": headline["planes"], "cases": timings + mnist_timings,
-        "variants": variants, "bf16": bf16}]}), flush=True)
+        "variants": variants, "bf16": bf16, "serving": serving}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -31,7 +31,11 @@ assert {"blurred_gan_tpu_torch.metrics.fid", "blurred_gan_tpu_torch.metrics.swd"
         "blurred_gan_tpu_torch.utils.images", "blurred_gan_tpu_torch.utils.logging",
         "blurred_gan_tpu_torch.utils.rundir", "blurred_gan_tpu_torch.utils.watchdog",
         "blurred_gan_tpu_torch.train.fast", "blurred_gan_tpu_torch.train_mnist",
-        "blurred_gan_tpu_torch.entry",
+        "blurred_gan_tpu_torch.entry", "blurred_gan_tpu_torch.serving",
+        "blurred_gan_tpu_torch.generate_samples", "blurred_gan_tpu_torch.tools",
+        "blurred_gan_tpu_torch.tools.export_generator", "blurred_gan_tpu_torch.tools.evaluate_run",
+        "blurred_gan_tpu_torch.tools.score", "blurred_gan_tpu_torch.metrics.kid",
+        "blurred_gan_tpu_torch.metrics.prdc", "blurred_gan_tpu_torch.utils.profiling",
         } <= set(names), names
 import blurred_gan_tpu_torch.utils.logging as logging_mod
 logging_mod._summary_writer = lambda log_dir: None
