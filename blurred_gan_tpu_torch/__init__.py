@@ -7,7 +7,8 @@ kernel here (``ops/blur_cuda.py``, ``csrc/blur_planes.cu``). This package
 imports torch and never jax, and nothing of the JAX package: what it needs of
 that package's numpy-only modules it keeps as its own copies.
 
-- ``data.pipeline``    numpy batch stream, synthetic corpus, shard store
+- ``data.pipeline``    numpy batch stream, synthetic corpus, shard store, image folders
+- ``native``           the host JPEG / PNG decoder (C++, ctypes, built by g++)
 - ``sched.blur``       the open-loop σ decay and the adaptive σ controller
 - ``ops.blur``         blur sizing policy, band matrices, ``blur_images``
 - ``ops.blur_cuda``    the kernel's build, wrapper and autograd Function

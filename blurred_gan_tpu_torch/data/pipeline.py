@@ -1,27 +1,30 @@
-"""Host-side input pipeline (numpy only): a copy of the part of
-``blurred_gan_tpu/data/pipeline.py`` that the CelebA training path uses.
+"""Host-side input pipeline (numpy only): a copy of the JAX package's
+``blurred_gan_tpu/data/pipeline.py``.
 
 Batches are uint8 NHWC numpy arrays; the train step moves them to the device
 and normalises them there. Every epoch's permutation is
 ``RandomState(seed + epoch)``, so ``start_epoch``/``start_batch`` resume the
 stream at the exact batch by index arithmetic alone, and the stream is
-byte-equal to the JAX package's for the same dataset and seed.
+byte-equal to the JAX package's for the same dataset and seed, whatever the
+storage: an image folder, its materialized array or its shard store.
 
-Copied: ``ArrayDataset``, ``synthetic_dataset``, the ``shard-*.npy`` store
-(``ShardedArrayDataset``, with ``materialize`` for the device-resident mode),
+Copied: ``ArrayDataset``, ``synthetic_dataset``, ``ImageFolderDataset`` (a
+folder of JPEG / PNG files decoded per batch on the pipeline's worker by the
+native loader, ``blurred_gan_tpu_torch/native``, or by Pillow where that does
+not build), the ``shard-*.npy`` store (``ShardedArrayDataset``,
+``write_shards``), ``materialize`` for the device-resident mode,
 ``DataPipeline``, ``load_mnist`` and ``load_celeba``, without the
-multi-process sharding options (the port trains on one device). Not copied:
-the JPEG / native-decoder folder path (``ImageFolderDataset``); ``load_celeba``
-raises on a directory of images instead (ROADMAP queue 1, item 9). Convert such
-a directory once with the JAX package's ``tools/make_shards.py``.
+multi-process sharding options (the port trains on one device).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import queue
+import sys
 import threading
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -167,6 +170,153 @@ class ShardedArrayDataset:
             yield self._gather(idx)
 
 
+def _choose_decoder() -> Tuple[str, Optional[str]]:
+    """``("native" | "pil", the native loader's build error or None)``, as
+    the JAX package picks: the native loader where it builds, Pillow where it
+    does not. Raises ``RuntimeError`` naming both reasons if neither exists."""
+    from blurred_gan_tpu_torch import native
+
+    if native.available():
+        return "native", None
+    error = native.build_error()
+    if importlib.util.find_spec("PIL") is None:
+        raise RuntimeError(f"no image decoder: the native loader did not build ({error}) "
+                           f"and Pillow is not installed")
+    return "pil", error
+
+
+class ImageFolderDataset:
+    """A directory of JPEG / PNG images, decoded per batch: only the sorted
+    file list stays in memory, and each epoch draws a fresh permutation of it.
+
+    Each image is centre-cropped to its largest square and resized to
+    ``resolution``² (PIL's BILINEAR). ``decoder`` records which decoder runs:
+    ``"native"`` (the parallel C++ loader) or ``"pil"`` (one image at a time,
+    where the native loader does not build); construction says which on
+    stderr, and raises if there is neither.
+    """
+
+    def __init__(self, root: str, resolution: int, num_examples: Optional[int] = None,
+                 extensions: Sequence[str] = _IMAGE_EXTENSIONS):
+        self.root = root
+        self.resolution = resolution
+        files: List[str] = []
+        for name in sorted(os.listdir(root)):
+            if name.lower().endswith(tuple(extensions)):
+                files.append(os.path.join(root, name))
+            if num_examples and len(files) >= num_examples:
+                break
+        if not files:
+            raise FileNotFoundError(f"no images under {root}")
+        self.files = files
+        self.name = f"folder:{os.path.basename(root)}@{resolution}"
+        self.decoder, error = _choose_decoder()
+        how = ("the native loader" if self.decoder == "native" else
+               f"Pillow, one image at a time (the native loader did not build: {error})")
+        print(f"[data] {self.name}: {len(files)} images, decoded by {how}",
+              file=sys.stderr, flush=True)
+
+    @property
+    def num_examples(self) -> int:
+        return len(self.files)
+
+    @property
+    def image_shape(self) -> Tuple[int, int, int]:
+        return (self.resolution, self.resolution, 3)
+
+    def _decode(self, fp: str) -> np.ndarray:
+        """One image through Pillow: the JAX package's arithmetic."""
+        from PIL import Image
+
+        with Image.open(fp) as src:
+            img = src.convert("RGB")
+        w, h = img.size
+        side = min(w, h)
+        img = img.crop(((w - side) // 2, (h - side) // 2,
+                        (w + side) // 2, (h + side) // 2))
+        img = img.resize((self.resolution, self.resolution), Image.Resampling.BILINEAR)
+        return np.asarray(img, np.uint8)
+
+    def _decode_batch(self, paths: Sequence[str]) -> np.ndarray:
+        """The native loader's parallel decode, or Pillow one image at a
+        time on the calling thread (a pool of Python threads contends for the
+        GIL with the thread that launches the step's kernels)."""
+        if self.decoder == "native":
+            from blurred_gan_tpu_torch import native
+
+            return native.decode_batch(paths, self.resolution)
+        out = np.empty((len(paths), *self.image_shape), np.uint8)
+        for i, fp in enumerate(paths):
+            try:
+                out[i] = self._decode(fp)
+            except OSError as e:  # as the native loader: name the file
+                raise IOError(f"failed to decode image: {fp} ({e})") from e
+        return out
+
+    def materialize(self, decode_batch: int = 512, progress: bool = True) -> ArrayDataset:
+        """The whole folder decoded into memory, in file order, ``decode_batch``
+        images at a time: the bridge to the device-resident mode, which parks
+        ``.images`` on the card. Progress goes to stderr (the CLIs keep stdout
+        for their JSON)."""
+        n = len(self.files)
+        out = np.empty((n, self.resolution, self.resolution, 3), np.uint8)
+        for i in range(0, n, decode_batch):
+            out[i:i + decode_batch] = self._decode_batch(self.files[i:i + decode_batch])
+            if progress and (i // decode_batch) % 20 == 0:
+                print(f"[data] materializing {self.name}: {i}/{n}", file=sys.stderr,
+                      flush=True)
+        return ArrayDataset(out, name=f"{self.name}:materialized")
+
+    def batches(self, batch_size: int, *, seed: int = 0, start_epoch: int = 0,
+                start_batch: int = 0) -> Iterator[np.ndarray]:
+        """The same stream contract (and values) as ``ArrayDataset.batches``
+        over the materialized folder."""
+        for idx in _batch_indices(self.num_examples, batch_size, seed=seed,
+                                  start_epoch=start_epoch, start_batch=start_batch):
+            yield self._decode_batch([self.files[j] for j in idx])
+
+
+def image_folder_dataset(root: str, resolution: int = 128,
+                         num_examples: Optional[int] = None) -> ImageFolderDataset:
+    return ImageFolderDataset(root, resolution, num_examples)
+
+
+def write_shards(source, root: str, shard_size: int = 4096,
+                 progress: bool = True) -> ShardedArrayDataset:
+    """Write ``source`` as a ``shard-*.npy`` directory and reopen it mmap'd.
+
+    ``source`` is a uint8 NHWC array, an :class:`ArrayDataset` or an
+    :class:`ImageFolderDataset`; a folder is decoded one shard at a time, so
+    a corpus larger than memory converts in bounded memory. The store keeps
+    the source's order. A directory that already holds shards is refused.
+    """
+    os.makedirs(root, exist_ok=True)
+    stale = [n for n in os.listdir(root) if n.startswith(_SHARD_PREFIX) and n.endswith(".npy")]
+    if stale:
+        raise FileExistsError(
+            f"{root} already holds {len(stale)} shard files; refusing to mix two "
+            f"corpora - point write_shards at an empty directory")
+    if isinstance(source, ImageFolderDataset):
+        n = source.num_examples
+
+        def chunk(i):
+            return source._decode_batch(source.files[i:i + shard_size])
+    else:
+        images = source.images if isinstance(source, ArrayDataset) else np.asarray(source)
+        if images.ndim != 4 or images.dtype != np.uint8:
+            raise ValueError(f"expected uint8 NHWC, got {images.dtype} {images.shape}")
+        n = images.shape[0]
+
+        def chunk(i):
+            return images[i:i + shard_size]
+
+    for k, i in enumerate(range(0, n, shard_size)):
+        np.save(os.path.join(root, f"{_SHARD_PREFIX}{k:05d}.npy"), chunk(i))
+        if progress and k % 20 == 0:
+            print(f"[data] writing shards: {i}/{n}", file=sys.stderr, flush=True)
+    return ShardedArrayDataset(root)
+
+
 def _datasets_dir() -> str:
     return os.environ.get("DATASETS_DIR", os.path.expanduser("~/datasets"))
 
@@ -197,13 +347,15 @@ def load_mnist(path: Optional[str] = None, split: str = "train",
 
 
 def load_celeba(path: Optional[str] = None, resolution: int = 128,
-                num_examples: Optional[int] = None):
-    """CelebA at ``resolution``² from a local ``shard-*.npy`` store.
+                num_examples: Optional[int] = None, allow_synthetic_fallback: bool = True):
+    """CelebA at ``resolution``² from a local ``shard-*.npy`` store or a
+    directory of aligned JPEGs (centre-cropped, resized).
 
     Searches ``path``, then ``$DATASETS_DIR`` (default ``~/datasets``) as the
-    JAX package does. A directory of JPEGs raises ``NotImplementedError``:
-    decoding them is not ported (ROADMAP queue 1, item 9). Only when no
-    candidate directory exists does it fall back to the synthetic corpus.
+    JAX package does. In the first directory found, a shard store wins over
+    images; a directory with neither raises ``FileNotFoundError``. Only when
+    no candidate directory exists does it fall back to the synthetic corpus,
+    and with ``allow_synthetic_fallback=False`` raises instead.
     """
     candidates = [path] if path else [
         os.path.join(_datasets_dir(), f"celeba_shards_{resolution}"),
@@ -214,8 +366,7 @@ def load_celeba(path: Optional[str] = None, resolution: int = 128,
     for cand in candidates:
         if not (cand and os.path.isdir(cand)):
             continue
-        names = os.listdir(cand)
-        if any(n.startswith(_SHARD_PREFIX) and n.endswith(".npy") for n in names):
+        if any(n.startswith(_SHARD_PREFIX) and n.endswith(".npy") for n in os.listdir(cand)):
             ds = ShardedArrayDataset(cand, num_examples=num_examples)
             if ds.image_shape[:2] != (resolution, resolution):
                 raise ValueError(
@@ -223,12 +374,9 @@ def load_celeba(path: Optional[str] = None, resolution: int = 128,
                     f"resolution={resolution} was requested; convert with "
                     f"tools/make_shards.py at the right resolution")
             return ds
-        if any(n.lower().endswith(_IMAGE_EXTENSIONS) for n in names):
-            raise NotImplementedError(
-                f"{cand} is a directory of images; the PyTorch port reads only a "
-                f"{_SHARD_PREFIX}*.npy store (ROADMAP queue 1, item 9). Convert it "
-                f"once with tools/make_shards.py")
-        raise FileNotFoundError(f"no images under {cand}")
+        return image_folder_dataset(cand, resolution=resolution, num_examples=num_examples)
+    if not allow_synthetic_fallback:
+        raise FileNotFoundError(f"no CelebA image dir found in {candidates}")
     n = min(num_examples or 202_599, 20_000)  # cap the procedural corpus
     print(f"[data] CelebA not found locally - using deterministic synthetic "
           f"{resolution}x{resolution}x3 surrogate ({n} examples)")

@@ -2,9 +2,9 @@
 and KID (the port's counterpart of the repo root's ``tools/score.py``).
 
 Inputs (either side): an ``.npz`` with a ``samples`` array (else its first
-array) or an ``.npy`` array, NHWC or grayscale NHW, uint8 [0, 255] or float
-[-1, 1]. A directory of images is not read yet: decoding one is ROADMAP
-queue 1, item 9, and such an input raises ``NotImplementedError``.
+array), an ``.npy`` array, NHWC or grayscale NHW, uint8 [0, 255] or float
+[-1, 1], or a directory of images (``--resolution`` required), decoded,
+centre-cropped and resized as the CelebA pipeline does.
 
     python -m blurred_gan_tpu_torch.tools.score --real reals.npz --fake samples.npz
     python -m blurred_gan_tpu_torch.tools.score --real a.npz --fake b.npz --kid --prdc \\
@@ -27,6 +27,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from blurred_gan_tpu_torch.data.pipeline import ImageFolderDataset
 from blurred_gan_tpu_torch.entry import setup_device
 from blurred_gan_tpu_torch.metrics.fid import FIDMetric
 from blurred_gan_tpu_torch.metrics.inception import inception_feature_fn
@@ -38,10 +39,12 @@ from blurred_gan_tpu_torch.metrics.swd import SWDMetric
 def _load(path: str, resolution: Optional[int], limit: Optional[int]) -> np.ndarray:
     """An input file as float32 NHWC in [-1, 1]."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory of images; the PyTorch port scores npz and npy "
-            f"inputs only (decoding an image folder is ROADMAP queue 1, item 9)")
-    if path.endswith(".npz"):
+        if resolution is None:
+            raise SystemExit("--resolution is required with directory inputs")
+        # Decoded in chunks with progress on stderr: a full CelebA folder is
+        # ~10 GB of uint8.
+        x = ImageFolderDataset(path, resolution, num_examples=limit).materialize().images
+    elif path.endswith(".npz"):
         with np.load(path) as d:
             key = "samples" if "samples" in d else list(d.keys())[0]
             x = d[key]
@@ -62,7 +65,7 @@ def _load(path: str, resolution: Optional[int], limit: Optional[int]) -> np.ndar
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="SWD + FID between two sample sets (npz/npy)")
+        description="SWD + FID between two sample sets (npz/npy/image dir)")
     parser.add_argument("--real", required=True, help="reference-side samples")
     parser.add_argument("--fake", required=True, help="candidate-side samples")
     parser.add_argument("--resolution", type=int, default=None,

@@ -10,11 +10,12 @@ in both matmuls and cuDNN convolutions. ``--bf16`` runs both networks'
 convolutions and Dense layers in bfloat16 at the JAX package's dtype
 boundaries (``models/dcgan.py``; the blur stays float32), ``--fast_gen`` with
 it also the generator's BatchNorm outputs and its tanh. Data comes from a
-local CelebA shard store or, without one, the deterministic synthetic
-128x128x3 corpus.
-``--device_resident`` parks the dataset on the card and trains in chunks of
-``--chunk_steps`` steps, each a replay of the captured train step
-(``train/fast.py``).
+local CelebA shard store or folder of images (``--celeba_path``, decoded per
+batch on the data pipeline's worker) or, without either, the deterministic
+synthetic 128x128x3 corpus.
+``--device_resident`` parks the dataset on the card (a folder is decoded
+into memory first) and trains in chunks of ``--chunk_steps`` steps, each a
+replay of the captured train step (``train/fast.py``).
 
     python -m blurred_gan_tpu_torch.train_celeba --epochs 10 --log_dir results/celeba128
     python -m blurred_gan_tpu_torch.train_celeba --device_resident --chunk_steps 100

@@ -101,6 +101,21 @@ Phases, each of which raises on failure:
     2-step ``--ema_decay 0.999`` run against ``make_sample_fn(use_ema=True)``;
     the generator's FLOPs per image, and its images/s at batches 128 and 32,
     eager and the artifact in turns, with their peak memory;
+15. the image folder: a probe line (nproc, Pillow, libjpeg's and libpng's
+    headers, the native loader's build); 2,048 CelebA-shaped 178x218 JPEGs
+    written to the temporary directory; ``materialize`` against the
+    per-batch decode in file order, byte for byte; the ``make_shards`` CLI
+    on the folder; the stream's first batches byte-equal across the folder,
+    its array and its store; 12 steps of ``fit`` from each under
+    deterministic cuDNN, the losses bit-equal, 6 blur launches a step; the
+    native loader against Pillow where both exist; ``fit`` images/s from
+    each in turns, two rounds, and the decode's seconds per batch on the
+    pipeline's worker; ``--device_resident`` from the folder (materialized
+    by the entry point), chunked images/s; ``tools.score`` on the folder
+    against the npz of its decoded images. On a machine that decodes no
+    image it says so and runs the store's half: the CLI on an mnist.npz,
+    the store against the array in streams, losses and ``fit`` images/s,
+    and ``--device_resident`` from the store;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -187,6 +202,22 @@ SERVE_SIGMA, SERVE_GRID = 0.5, 64
 SERVE_BATCHES, SERVE_CALLS = (128, 32), 25
 SERVE_SAMPLES = 1000
 SERVE_TOL = dict(rtol=1e-5, atol=1e-5)
+# Phase 15: the folder's corpus (CelebA's aligned 178x218 JPEGs at quality 90,
+# each one of the synthetic corpus's 32 bases under its own noise of ±12) and
+# its make_shards store's shard size; the stream positions (seed, epoch,
+# batch) compared across the folder, its array and its store, 8 batches each
+# (the second crosses an epoch of 64 batches); fit's steps per timed run and
+# its rounds of turns; the images scored by tools.score (FID over 64
+# random-conv features: a 2048² sqrtm on the host is no part of the folder's
+# branch); the full CelebA's image count; and the native loader against
+# Pillow (tests/test_native.py's bound).
+FOLDER_SIZE, FOLDER_IMAGES, FOLDER_BASES, FOLDER_SHARD = (178, 218), 2048, 32, 512
+FOLDER_STREAMS, FOLDER_BATCHES = ((0, 0, 0), (3, 1, 60)), 8
+FOLDER_STEPS, FOLDER_ROUNDS, FOLDER_CHUNKS = 24, 2, 3
+FOLDER_SCORED, FOLDER_FID_DIM = 512, 64
+CELEBA_IMAGES = 202_599
+NATIVE_VS_PIL = dict(mean=1.5, p99=3)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1957,6 +1988,325 @@ def run_serving(blur_cuda, blur_matrix, full_args, dataset, workdir, card):
             "cli_seconds": {n: r[2] for n, r in results.items()}}
 
 
+def probe_decoders():
+    """Phase 15a: (nproc, Pillow's version or None, whether g++ finds
+    libjpeg's and libpng's headers, the native loader's build error or None)."""
+    from importlib import metadata
+
+    from blurred_gan_tpu_torch import native
+
+    try:
+        pillow = metadata.version("Pillow")
+    except metadata.PackageNotFoundError:
+        pillow = None
+    try:
+        headers = subprocess.run(
+            ["g++", "-fsyntax-only", "-x", "c++", "-"], capture_output=True, text=True,
+            timeout=60, input="#include <cstddef>\n#include <cstdio>\n"
+                              "#include <jpeglib.h>\n#include <png.h>\n").returncode == 0
+    except FileNotFoundError:
+        headers = False
+    return len(os.sched_getaffinity(0)), pillow, headers, native.build_error()
+
+
+def write_corpus(folder: str, pillow) -> None:
+    """CelebA-shaped JPEGs (PNGs through the port's writer where there is no
+    Pillow to encode JPEG), each image a base under noise of its own."""
+    import numpy as np
+
+    from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
+    from blurred_gan_tpu_torch.utils.images import write_png
+
+    w, h = FOLDER_SIZE
+    bases = synthetic_dataset((h, w, 3), FOLDER_BASES, seed=0).images.astype(np.int16)
+    rng = np.random.RandomState(0)
+    os.makedirs(folder)
+    for i in range(FOLDER_IMAGES):
+        noise = rng.randint(-12, 13, bases.shape[1:])
+        img = np.clip(bases[i % FOLDER_BASES] + noise, 0, 255).astype(np.uint8)
+        if pillow:
+            from PIL import Image
+
+            Image.fromarray(img).save(os.path.join(folder, f"{i + 1:06d}.jpg"), quality=90)
+        else:
+            write_png(os.path.join(folder, f"{i + 1:06d}.png"), img)
+
+
+def timed_batches(dataset, seconds: list) -> None:
+    """Record, on the pipeline's worker, the seconds each batch of
+    ``dataset``'s stream takes to produce (the decode, for a folder)."""
+    batches = dataset.batches
+
+    def timed(*a, **k):
+        it = batches(*a, **k)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it)
+            seconds.append(time.perf_counter() - t0)
+            yield batch
+
+    dataset.batches = timed
+
+
+def folder_trainer(workdir, name, path, dataset=None, **flags):
+    """The entry point's trainer on ``path`` (its hooks off); ``dataset``
+    replaces what it loaded (the same corpus held in memory)."""
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    args = smoke_args(os.path.join(workdir, name), celeba_path=path, sample_grid_every=0,
+                      checkpoint_every=0, save_image_summaries_interval=0, **flags)
+    trainer, total = build_trainer(args, feeders=[])
+    if dataset is not None:
+        trainer.dataset = dataset
+    return trainer, total
+
+
+def folder_fit(blur_cuda, trainer, total, steps):
+    """``steps`` steps of ``fit``; returns (history, blur launches per step)
+    and removes the run directory (a checkpoint is ~190 MB)."""
+    import shutil
+
+    per_step = count_step_launches(blur_cuda, trainer)
+    trainer.fit(total_examples=total, max_steps=steps)
+    torch.cuda.synchronize()
+    history = list(trainer.history)
+    trainer.close()
+    shutil.rmtree(trainer.cfg.log_dir, ignore_errors=True)
+    for n, h in enumerate(history):
+        if not all(math.isfinite(h[k]) for k in ("disc_loss", "gen_loss", "gp_term")):
+            raise RuntimeError(f"phase 15, step {n + 1}: {h}")
+    if len(history) != steps or per_step != [6] * steps:
+        raise RuntimeError(f"phase 15: {len(history)} steps, blur launches per step "
+                           f"{per_step}, want {steps} steps of 6")
+    return history, per_step
+
+
+def stream_bytes(dataset):
+    """The first batches of ``dataset``'s stream at each of FOLDER_STREAMS."""
+    out = []
+    for seed, epoch, batch in FOLDER_STREAMS:
+        it = dataset.batches(BATCH, seed=seed, start_epoch=epoch, start_batch=batch)
+        out += [next(it).tobytes() for _ in range(FOLDER_BATCHES)]
+    return out
+
+
+def make_shards_cli(source, out_dir, *flags):
+    """``python -m blurred_gan_tpu_torch.tools.make_shards`` in a process of
+    its own; returns its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blurred_gan_tpu_torch.tools.make_shards", source, out_dir,
+         "--shard_size", str(FOLDER_SHARD), *flags], cwd=HERE, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=HERE))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or "[make_shards] wrote" not in proc.stdout:
+        raise RuntimeError(f"phase 15, make_shards: {proc.returncode}\n{proc.stdout[-2000:]}"
+                           f"\n{proc.stderr[-4000:]}")
+    return seconds
+
+
+def score_json(argv) -> str:
+    """``tools.score``'s JSON line for ``argv`` on the card."""
+    import functools
+    import io
+
+    from blurred_gan_tpu_torch.metrics.fid import FIDMetric
+    from blurred_gan_tpu_torch.tools import score
+
+    buf = io.StringIO()
+    fid_metric = score.FIDMetric
+    score.FIDMetric = functools.partial(FIDMetric, feature_dim=FOLDER_FID_DIM)
+    try:
+        with contextlib.redirect_stdout(buf):
+            score.main([*argv, "--limit", str(FOLDER_SCORED), "--device", "cuda"])
+    finally:
+        score.FIDMetric = fid_metric
+    return buf.getvalue().strip().splitlines()[-1]
+
+
+def run_folder(blur_cuda, synthetic, workdir, card):
+    """Phase 15: the image-folder path, or, on a machine that can decode no
+    image, the shard store's half of it."""
+    import numpy as np
+
+    from blurred_gan_tpu_torch.data.pipeline import (
+        ArrayDataset, ImageFolderDataset, ShardedArrayDataset, load_mnist, write_shards)
+
+    nproc, pillow, headers, error = probe_decoders()
+    log(f"[folder] probe: nproc {nproc}; Pillow {pillow or 'absent'}; libjpeg/libpng headers "
+        f"{'present' if headers else 'absent'}; native loader "
+        + ("built" if error is None else f"not built ({error})"))
+    if error is not None and headers:
+        raise RuntimeError(f"phase 15: the headers are present, yet the native loader did "
+                           f"not build:\n{error}")
+    out = {"nproc": nproc, "pillow": pillow, "headers": headers,
+           "native_error": error}
+    folder, store = os.path.join(workdir, "img_align_celeba"), os.path.join(workdir, "shards")
+    decodes = error is None or pillow is not None
+
+    if decodes:
+        t0 = time.perf_counter()
+        write_corpus(folder, pillow)
+        corpus_s = time.perf_counter() - t0
+        ds = ImageFolderDataset(folder, RES)
+        t0 = time.perf_counter()
+        array = ds.materialize(progress=False)
+        materialize_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        in_order = np.concatenate([ds._decode_batch(ds.files[i:i + BATCH])
+                                   for i in range(0, ds.num_examples, BATCH)])
+        batch_decode_s = time.perf_counter() - t0
+        if in_order.tobytes() != array.images.tobytes():
+            raise RuntimeError("phase 15: materialize() differs from the per-batch decode")
+        decode = {f"{ds.decoder}_materialize": FOLDER_IMAGES / materialize_s,
+                  f"{ds.decoder}_batch_{BATCH}": FOLDER_IMAGES / batch_decode_s}
+        if ds.decoder == "native":
+            from blurred_gan_tpu_torch import native
+
+            t0 = time.perf_counter()
+            one = native.decode_batch(ds.files, RES, n_threads=1)
+            decode["native_1_thread"] = FOLDER_IMAGES / (time.perf_counter() - t0)
+            if one.tobytes() != array.images.tobytes():
+                raise RuntimeError("phase 15: the native loader differs at one thread")
+        if ds.decoder == "native" and pillow:
+            t0 = time.perf_counter()
+            pil = np.stack([ds._decode(f) for f in ds.files])
+            decode["pil"] = FOLDER_IMAGES / (time.perf_counter() - t0)
+            diff = np.abs(pil.astype(np.int16) - array.images.astype(np.int16))
+            out["native_vs_pil"] = {"mean": float(diff.mean()),
+                                    "p99": float(np.percentile(diff, 99))}
+            if (out["native_vs_pil"]["mean"] >= NATIVE_VS_PIL["mean"]
+                    or out["native_vs_pil"]["p99"] > NATIVE_VS_PIL["p99"]):
+                raise RuntimeError(f"phase 15: native vs Pillow {out['native_vs_pil']}")
+        shards_s = make_shards_cli(folder, store, "--resolution", str(RES))
+        stores = {"folder": folder, "shards": store, "array": None}
+        out.update(decoder=ds.decoder, corpus_s=corpus_s, materialize_s=materialize_s,
+                   decode_img_per_s=decode, make_shards_s=shards_s,
+                   jpeg_bytes=sum(os.path.getsize(f) for f in ds.files) / FOLDER_IMAGES)
+    else:
+        log(f"folder: no decoder on this machine (the native loader: {error}; "
+            f"Pillow is not installed)")
+        # The half that needs no decoder: the CLI on an mnist.npz, then the
+        # CelebA-128 store written by the library from the synthetic corpus.
+        from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
+
+        mnist = os.path.join(workdir, "mnist.npz")
+        digits = synthetic_dataset((28, 28, 1), FOLDER_IMAGES, seed=0).images[..., 0]
+        np.savez(mnist, x_train=digits, x_test=digits[:BATCH])
+        shards_s = make_shards_cli(mnist, os.path.join(workdir, "mnist_shards"))
+        if (stream_bytes(ShardedArrayDataset(os.path.join(workdir, "mnist_shards")))
+                != stream_bytes(load_mnist(mnist))):
+            raise RuntimeError("phase 15: the MNIST store's stream differs from its array's")
+        array = ArrayDataset(synthetic.images, name="synthetic")
+        write_shards(array, store, shard_size=FOLDER_SHARD, progress=False)
+        stores = {"shards": store, "array": None}
+        out.update(decoder=None, make_shards_s=shards_s)
+    shards = ShardedArrayDataset(store)
+
+    # The same stream, byte for byte, from every storage of the corpus.
+    streams = {name: stream_bytes(d) for name, d in (
+        ("folder", ImageFolderDataset(folder, RES) if decodes else None),
+        ("shards", shards), ("array", array)) if d is not None}
+    if any(v != streams["array"] for v in streams.values()):
+        raise RuntimeError(f"phase 15: the streams differ across {sorted(streams)}")
+
+    # 12 steps from each storage, the same weights and seed, deterministic
+    # cuDNN: the losses are bit-equal.
+    keys = ("disc_loss", "gen_loss", "gp_term", "wgan_loss")
+    torch.backends.cudnn.deterministic = True
+    try:
+        det, launches = {}, {}
+        for name, path in stores.items():
+            trainer, total = folder_trainer(workdir, f"det_{name}", path or store,
+                                            dataset=array if path is None else None)
+            det[name], per_step = folder_fit(blur_cuda, trainer, total, STEPS)
+            launches[name] = sum(per_step)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    losses = {name: [[h[k] for k in keys] for h in hist] for name, hist in det.items()}
+    if any(v != losses["array"] for v in losses.values()):
+        raise RuntimeError(f"phase 15: the losses differ across {sorted(losses)}: {losses}")
+
+    # fit images/s from each storage in turns (ABC, CBA), default cuDNN.
+    order = list(stores) + list(stores)[::-1]
+    rates = {name: [] for name in stores}
+    worker_s = []
+    for name in order:
+        path = stores[name]
+        trainer, total = folder_trainer(workdir, f"fit_{name}", path or store,
+                                        dataset=array if path is None else None)
+        if name == "folder" and not worker_s:
+            timed_batches(trainer.dataset, worker_s)
+        hist, _ = folder_fit(blur_cuda, trainer, total, FOLDER_STEPS)
+        rates[name].append(statistics.median(h["images_per_sec"] for h in hist[2:]))
+
+    # The device-resident mode from the folder (or the store), materialized
+    # by the entry point.
+    t0 = time.perf_counter()
+    chunked, total = folder_trainer(workdir, "resident", folder if decodes else store,
+                                    device_resident=True, chunk_steps=TIMED_CHUNK)
+    resident_build_s = time.perf_counter() - t0
+    chunked.fit_device_resident(total_examples=total, chunk_steps=TIMED_CHUNK,
+                                max_chunks=FOLDER_CHUNKS)
+    torch.cuda.synchronize()
+    if chunked.chunk_runner.data.cpu().numpy().tobytes() != array.images.tobytes():
+        raise RuntimeError("phase 15: the device-resident copy differs from the array")
+    chunk_list = chunk_rates(chunked.history, TIMED_CHUNK)
+    chunked.close()
+    del chunked
+    torch.cuda.empty_cache()
+
+    scored = None
+    if decodes:
+        real, fake = os.path.join(workdir, "real.npz"), os.path.join(workdir, "fake.npz")
+        np.savez(real, samples=array.images[:FOLDER_SCORED])
+        np.savez(fake, samples=synthetic.images[:FOLDER_SCORED])
+        torch.backends.cudnn.deterministic = True
+        try:
+            scored = score_json(["--real", folder, "--fake", fake, "--resolution", str(RES)])
+            from_npz = score_json(["--real", real, "--fake", fake])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if scored != from_npz:
+            raise RuntimeError(f"phase 15, score: folder {scored} vs npz {from_npz}")
+    non_jax_check()
+
+    gb = CELEBA_IMAGES * RES * RES * 3 / 1e9
+    out.update(
+        streams=sorted(streams), fit_img_per_s=rates,
+        worker_batch_s=statistics.median(worker_s) if worker_s else None,
+        chunked_img_per_s=statistics.median(chunk_list[1:]), chunk_img_per_s=chunk_list,
+        resident_build_s=resident_build_s, launches=launches,
+        score=json.loads(scored) if scored else None,
+        full_celeba_gb=gb)
+    if decodes:
+        out["materialize_full_s"] = materialize_s * CELEBA_IMAGES / FOLDER_IMAGES
+        log(f"[folder] {FOLDER_IMAGES} JPEGs of {FOLDER_SIZE[0]}x{FOLDER_SIZE[1]} "
+            f"({out['jpeg_bytes'] / 1e3:.1f} KB each, written in {corpus_s:.1f} s) decoded to "
+            f"{RES}^2 by {out['decoder']}: "
+            + ", ".join(f"{k} {v:.1f} img/s" for k, v in decode.items())
+            + f"; materialize {materialize_s:.2f} s, {out['materialize_full_s']:.0f} s scaled "
+            f"to {CELEBA_IMAGES:,} images ({gb:.2f} GB uint8 on the card); make_shards CLI "
+            f"{shards_s:.1f} s; decode per batch of {BATCH} on the worker "
+            f"{1e3 * out['worker_batch_s']:.1f} ms (median of {len(worker_s)})")
+        if "native_vs_pil" in out:
+            log(f"[folder] native vs Pillow: mean |diff| {out['native_vs_pil']['mean']:.3f}, "
+                f"99th percentile {out['native_vs_pil']['p99']:.0f}")
+        log(f"[folder] tools.score on the folder = on the npz of its decoded images: {scored}")
+    log(f"[folder] streams byte-equal across {', '.join(sorted(streams))} at (seed, epoch, "
+        f"batch) {FOLDER_STREAMS}, {FOLDER_BATCHES} batches each; {STEPS} steps of fit from "
+        f"each, deterministic cuDNN: losses bit-equal, 6 blur launches a step")
+    log(f"[folder] CelebA-{RES} b{BATCH} f32 fit img/s (median of steps 3-{FOLDER_STEPS}, "
+        f"runs in turns {' '.join(order)}): "
+        + "; ".join(f"{k} {statistics.mean(v):.1f} ({', '.join(f'{r:.1f}' for r in v)})"
+                    for k, v in rates.items())
+        + f"; --device_resident from the {'folder' if decodes else 'store'}: chunked "
+        f"{out['chunked_img_per_s']:.1f} img/s (median of chunks 2-{FOLDER_CHUNKS} of "
+        f"{TIMED_CHUNK}; chunks {', '.join(f'{r:.1f}' for r in chunk_list)}), trainer with "
+        f"its materialize {resident_build_s:.1f} s on {card}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
@@ -2026,6 +2376,8 @@ def main():
         with phase("14 serving"):
             serving = run_serving(blur_cuda, blur_matrix, full_args, trainer.dataset,
                                   workdir, card)
+        with phase("15 image folder"):
+            folder = run_folder(blur_cuda, trainer.dataset, workdir, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -2038,7 +2390,8 @@ def main():
         # The library call is the plain version itself: two cuBLAS matmuls.
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
         "planes": headline["planes"], "cases": timings + mnist_timings,
-        "variants": variants, "bf16": bf16, "serving": serving}]}), flush=True)
+        "variants": variants, "bf16": bf16, "serving": serving, "folder": folder}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -77,10 +77,25 @@ def test_exponential_decay_equal():
 
 
 def test_load_celeba_raises_on_jpeg_directory(tmp_path):
-    for i in range(3):
-        (tmp_path / f"{i:06d}.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.load_celeba(str(tmp_path), resolution=16)
+    # A directory of JPEGs loads as the JAX package's does (an image folder
+    # with the same files, decoded to the same bytes); it raises only where
+    # a file does not decode, and then names it.
+    from PIL import Image
+
+    images = jp.synthetic_dataset((40, 32, 3), num_examples=5, seed=6).images
+    for i, img in enumerate(images):
+        Image.fromarray(img).save(tmp_path / f"{i:06d}.jpg", quality=90)
+    got = tp.load_celeba(str(tmp_path), resolution=16)
+    want = jp.load_celeba(str(tmp_path), resolution=16)
+    assert isinstance(got, tp.ImageFolderDataset) and got.files == want.files
+    assert got.name == want.name and got.image_shape == (16, 16, 3)
+    kw = dict(seed=2, start_epoch=0, start_batch=1)
+    assert [b.tobytes() for b in take(tp.DataPipeline(got, 2, **kw), 4)] == \
+        [b.tobytes() for b in take(jp.DataPipeline(want, 2, **kw), 4)]
+    (tmp_path / "000005.jpg").write_bytes(b"\xff\xd8\xff")
+    broken = tp.load_celeba(str(tmp_path), resolution=16)
+    with pytest.raises(OSError, match="failed to decode image: .*000005.jpg"):
+        broken.materialize(progress=False)
 
 
 def test_load_celeba_reads_jax_shard_store(tmp_path):

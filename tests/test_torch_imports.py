@@ -4,10 +4,10 @@ A fresh interpreter (this test process imports jax itself, in
 tests/conftest.py) imports every module of ``blurred_gan_tpu_torch``, runs one
 CPU step of the entry point as ``python -m`` would, and imports
 ``chip_smoke``; then neither ``jax`` nor any ``blurred_gan_tpu`` module may be
-in ``sys.modules``. Its own source files are checked the same way.
-TensorBoard's writer is off in the child (where TensorFlow is installed,
-``torch.utils.tensorboard`` imports it, which takes long and is beside the
-point here).
+in ``sys.modules``, nor Pillow, which the card's machine may lack. Its own
+source files are checked the same way. TensorBoard's writer is off in the
+child (where TensorFlow is installed, ``torch.utils.tensorboard`` imports it,
+which takes long and is beside the point here).
 """
 
 import ast
@@ -36,6 +36,7 @@ assert {"blurred_gan_tpu_torch.metrics.fid", "blurred_gan_tpu_torch.metrics.swd"
         "blurred_gan_tpu_torch.tools.export_generator", "blurred_gan_tpu_torch.tools.evaluate_run",
         "blurred_gan_tpu_torch.tools.score", "blurred_gan_tpu_torch.metrics.kid",
         "blurred_gan_tpu_torch.metrics.prdc", "blurred_gan_tpu_torch.utils.profiling",
+        "blurred_gan_tpu_torch.native", "blurred_gan_tpu_torch.tools.make_shards",
         } <= set(names), names
 import blurred_gan_tpu_torch.utils.logging as logging_mod
 logging_mod._summary_writer = lambda log_dir: None
@@ -47,6 +48,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "blurred_gan_tpu"
              or m.startswith("blurred_gan_tpu."))
 assert not bad, bad
+# The card's machine may have no Pillow: it is imported only to decode with it.
+pil = sorted(m for m in sys.modules if m == "PIL" or m.startswith("PIL."))
+assert not pil, pil
 print("imported", len(names), "modules")
 """
 

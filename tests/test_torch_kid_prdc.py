@@ -8,9 +8,9 @@ counts; density at rtol 1e-6. ``*_from_images`` through random-conv weights
 carried by ``convert.random_conv_weights_to_torch``. The cases of
 tests/test_kid.py and tests/test_prdc.py on the port's functions, and those of
 tests/test_score_cli.py on ``python -m blurred_gan_tpu_torch.tools.score``
-(a directory input raises ``NotImplementedError``: decoding an image folder
-is ROADMAP item 9). The CLI cases score FID over 32 random-conv features, not
-2048: a 2048² ``sqrtm`` takes ~20 s on the CPU and tests no more of the CLI.
+(a directory input scores as the npz of its decoded images). The CLI cases
+score FID over 32 random-conv features, not 2048: a 2048² ``sqrtm`` takes
+~20 s on the CPU and tests no more of the CLI.
 """
 
 import functools
@@ -343,12 +343,28 @@ def test_shape_mismatch_rejected(sample_sets, tmp_path, capsys):
         run_score(capsys, "--real", sample_sets[0], "--fake", p)
 
 
-def test_directory_input_is_item_9(tmp_path, capsys):
+def test_directory_input_is_item_9(sample_sets, small_fid, tmp_path, capsys):
+    # A directory of images scores as the npz of its images decoded by the
+    # JAX package (centre crop, resize to --resolution); --resolution is
+    # required with a directory.
+    from PIL import Image
+
+    from blurred_gan_tpu.data.pipeline import ImageFolderDataset as JaxImageFolderDataset
+
+    rs = np.random.RandomState(1)
     d = tmp_path / "imgs"
     d.mkdir()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_score(capsys, "--real", str(d), "--fake", str(d), "--resolution", "32",
-                  "--no_swd", "--batch", "8")
+    for i in range(20):
+        Image.fromarray(rs.randint(0, 256, (40, 36, 3), np.uint8)).save(str(d / f"{i:02d}.png"))
+    decoded = str(tmp_path / "decoded.npz")
+    np.savez(decoded, samples=JaxImageFolderDataset(str(d), 32).materialize(progress=False).images)
+    flags = ["--fake", sample_sets[1], "--resolution", "32", "--batch", "8", "--limit", "16",
+             "--kid", "--kid_subsets", "3", "--kid_subset_size", "8"]
+    from_folder = run_score(capsys, "--real", str(d), *flags)
+    assert from_folder == run_score(capsys, "--real", decoded, *flags)
+    assert from_folder["n_images"] == 16 and from_folder["image_shape"] == [32, 32, 3]
+    with pytest.raises(SystemExit, match="--resolution is required"):
+        run_score(capsys, "--real", str(d), "--fake", sample_sets[1])
 
 
 def test_score_refuses_a_missing_card(sample_sets):
