@@ -13,8 +13,11 @@ folder of JPEG / PNG files decoded per batch on the pipeline's worker by the
 native loader, ``blurred_gan_tpu_torch/native``, or by Pillow where that does
 not build), the ``shard-*.npy`` store (``ShardedArrayDataset``,
 ``write_shards``), ``materialize`` for the device-resident mode,
-``DataPipeline``, ``load_mnist`` and ``load_celeba``, without the
-multi-process sharding options (the port trains on one device).
+``DataPipeline``, ``load_mnist`` and ``load_celeba``, with the
+multi-process sharding options: ``shard_index`` / ``shard_count`` give each
+of a data-parallel run's processes a disjoint strided shard of the same epoch
+permutation, ``order[:n - n % shard_count][shard_index::shard_count]``, so
+each example appears once per global epoch.
 """
 
 from __future__ import annotations
@@ -34,18 +37,24 @@ _PREFETCH = 2  # batches the pipeline's worker may run ahead
 
 
 def _batch_indices(n: int, batch_size: int, *, seed: int, start_epoch: int,
-                   start_batch: int) -> Iterator[np.ndarray]:
-    """Infinite stream of example indices, one array per full batch: the
-    reference's epoch permutation and resume arithmetic."""
-    if batch_size > n:
+                   start_batch: int, shard_index: int = 0,
+                   shard_count: int = 1) -> Iterator[np.ndarray]:
+    """Infinite stream of example indices, one array per full batch of this
+    shard: the reference's epoch permutation and resume arithmetic, over the
+    shard's strided slice of each permutation (truncated to a multiple of
+    ``shard_count``, so every shard has the same length)."""
+    m = (n - n % shard_count) // shard_count
+    if batch_size > m:
         # Otherwise the stream yields nothing per epoch and a prefetching
         # consumer blocks forever on an empty queue.
-        raise ValueError(f"batch_size {batch_size} exceeds the {n} examples")
+        raise ValueError(f"batch_size {batch_size} exceeds this shard's {m} examples "
+                         f"(num_examples={n}, shard_count={shard_count})")
     epoch = start_epoch
     first = start_batch * batch_size
     while True:
         order = np.random.RandomState(seed + epoch).permutation(n)
-        for i in range(first, n - n % batch_size, batch_size):
+        order = order[:n - n % shard_count][shard_index::shard_count]
+        for i in range(first, m - m % batch_size, batch_size):
             yield order[i:i + batch_size]
         epoch += 1
         first = 0
@@ -69,11 +78,14 @@ class ArrayDataset:
         return tuple(self.images.shape[1:])
 
     def batches(self, batch_size: int, *, seed: int = 0, start_epoch: int = 0,
-                start_batch: int = 0) -> Iterator[np.ndarray]:
+                start_batch: int = 0, shard_index: int = 0,
+                shard_count: int = 1) -> Iterator[np.ndarray]:
         """Infinite epoch-shuffled uint8 batch stream; ``start_epoch`` and
-        ``start_batch`` resume it mid-run."""
+        ``start_batch`` resume it mid-run; ``shard_index`` / ``shard_count``
+        give a data-parallel process its shard of each epoch."""
         for idx in _batch_indices(self.num_examples, batch_size, seed=seed,
-                                  start_epoch=start_epoch, start_batch=start_batch):
+                                  start_epoch=start_epoch, start_batch=start_batch,
+                                  shard_index=shard_index, shard_count=shard_count):
             yield self.images[idx]
 
 
@@ -163,10 +175,12 @@ class ShardedArrayDataset:
         return ArrayDataset(np.concatenate(parts), name=f"{self.name}:materialized")
 
     def batches(self, batch_size: int, *, seed: int = 0, start_epoch: int = 0,
-                start_batch: int = 0) -> Iterator[np.ndarray]:
+                start_batch: int = 0, shard_index: int = 0,
+                shard_count: int = 1) -> Iterator[np.ndarray]:
         """The same stream contract (and values) as ``ArrayDataset.batches``."""
         for idx in _batch_indices(self.num_examples, batch_size, seed=seed,
-                                  start_epoch=start_epoch, start_batch=start_batch):
+                                  start_epoch=start_epoch, start_batch=start_batch,
+                                  shard_index=shard_index, shard_count=shard_count):
             yield self._gather(idx)
 
 
@@ -268,11 +282,13 @@ class ImageFolderDataset:
         return ArrayDataset(out, name=f"{self.name}:materialized")
 
     def batches(self, batch_size: int, *, seed: int = 0, start_epoch: int = 0,
-                start_batch: int = 0) -> Iterator[np.ndarray]:
+                start_batch: int = 0, shard_index: int = 0,
+                shard_count: int = 1) -> Iterator[np.ndarray]:
         """The same stream contract (and values) as ``ArrayDataset.batches``
         over the materialized folder."""
         for idx in _batch_indices(self.num_examples, batch_size, seed=seed,
-                                  start_epoch=start_epoch, start_batch=start_batch):
+                                  start_epoch=start_epoch, start_batch=start_batch,
+                                  shard_index=shard_index, shard_count=shard_count):
             yield self._decode_batch([self.files[j] for j in idx])
 
 
@@ -388,16 +404,20 @@ class DataPipeline:
 
     Iterating yields uint8 NHWC numpy batches while the next ones are gathered
     concurrently (a queue of ``_PREFETCH`` batches). An error in the worker is
-    raised in the consumer.
+    raised in the consumer. ``shard_index`` / ``shard_count``: this process's
+    shard of each epoch (``ArrayDataset.batches``).
     """
 
     def __init__(self, dataset, batch_size: int, *, seed: int = 0,
-                 start_epoch: int = 0, start_batch: int = 0):
+                 start_epoch: int = 0, start_batch: int = 0,
+                 shard_index: int = 0, shard_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.start_epoch = start_epoch
         self.start_batch = start_batch
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._queue: Optional[queue.Queue] = None
@@ -421,7 +441,9 @@ class DataPipeline:
             try:
                 it = self.dataset.batches(self.batch_size, seed=self.seed,
                                           start_epoch=self.start_epoch,
-                                          start_batch=self.start_batch)
+                                          start_batch=self.start_batch,
+                                          shard_index=self.shard_index,
+                                          shard_count=self.shard_count)
                 for batch in it:
                     if self._stop.is_set() or not put(batch):
                         return

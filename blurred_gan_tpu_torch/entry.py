@@ -3,6 +3,12 @@ the flags both take, the set-up from parsed flags up to the dataset, the
 ``Trainer`` assembled around a dataset, networks and σ controller, their
 metric feeders, and the run in the host loop or in chunks. Each entry point
 keeps only its own dataset, networks and σ controller.
+
+Under ``python -m torch.distributed.run --nproc_per_node N -m <entry point>``
+the set-up starts the process group first (``runtime.py``; ``--dist_backend``
+names its backend, else ``nccl`` on the card and ``gloo`` on the CPU), a bare
+``--device cuda`` becomes ``cuda:<LOCAL_RANK>``, ``--batch_size`` is each
+process's batch and the global batch is N times it.
 """
 
 from __future__ import annotations
@@ -10,10 +16,12 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from blurred_gan_tpu_torch.metrics.fid import FIDMetric
 from blurred_gan_tpu_torch.metrics.inception import inception_feature_fn
 from blurred_gan_tpu_torch.metrics.swd import SWDMetric
+from blurred_gan_tpu_torch.runtime import local_device, maybe_initialize_distributed
 from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters, TrainingConfig
 from blurred_gan_tpu_torch.train.fast import chunk_plan
 from blurred_gan_tpu_torch.train.loop import MetricFeeder, Trainer, TrainerConfig
@@ -54,6 +62,9 @@ def add_common_arguments(parser: argparse.ArgumentParser) -> None:
                              "failing with DeviceHangError instead of hanging (0 = off; "
                              "resume from the latest checkpoint)")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="backend of a multi-process run's group (default: nccl on "
+                             "cuda, gloo on cpu)")
 
 
 def setup_device(name: str) -> torch.device:
@@ -67,12 +78,15 @@ def setup_device(name: str) -> torch.device:
 
 
 def setup(args: argparse.Namespace):
-    """(device, hparams, config) for parsed ``args``: the device
-    (:func:`setup_device`), the batch sized for one device and the
-    ``--run_name`` directory."""
-    device = setup_device(args.device)
+    """(device, hparams, config) for parsed ``args``: the process group
+    where the environment asks for one, this process's device
+    (:func:`setup_device`), the global batch (``--batch_size`` times the
+    processes) and the ``--run_name`` directory."""
+    device = local_device(args.device)
+    world = maybe_initialize_distributed(device, args.dist_backend)
+    device = setup_device(device)
     hparams = BlurredWGANGPHyperParameters.from_args(args)
-    hparams.global_batch_size = hparams.batch_size  # one device
+    hparams.global_batch_size = hparams.batch_size * world
     config = TrainingConfig.from_args(args)
     if args.run_name:
         config.log_dir = create_result_subdir("results", args.run_name)
@@ -104,6 +118,21 @@ def entry_point_feeders(inception_fid: bool, device) -> list:
            else FIDMetric())
     return [MetricFeeder(SWDMetric(), every_n_examples=50_000, num_samples=1000, name="swd"),
             MetricFeeder(fid, every_n_examples=50_000, num_samples=100, name="fid")]
+
+
+def start_line(name: str, trainer: Trainer, **fields) -> None:
+    """The entry point's start line, printed once (by rank 0): ``fields``,
+    then the process count and the global batch."""
+    if trainer.is_main:
+        pairs = " ".join(f"{k}={v}" for k, v in fields.items())
+        print(f"[{name}] {pairs} processes={trainer.world} "
+              f"global_bs={trainer.hparams.global_batch_size}", flush=True)
+
+
+def shutdown() -> None:
+    """End the process group, if one was started."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def run(trainer: Trainer, args: argparse.Namespace, total_examples: int, name: str) -> None:

@@ -12,6 +12,10 @@
   ``α``; ``gp_term`` is then a 0-d zero.
 - ``α`` takes the reals' dtype; bfloat16 fakes meeting float32 reals give
   float32 interpolates, as ``jnp`` promotes them.
+- ``replica_weight`` (a data-parallel process's share of the global batch)
+  weights the penalty's and the drift's batch means, so that their sum over
+  the processes is the global batch's mean; ``reference_grad_scale`` then
+  scales by the global batch. None (one process) leaves both as they are.
 """
 
 from __future__ import annotations
@@ -60,16 +64,20 @@ def wgangp_discriminator_loss(critic_fn_eval: Callable, reals, fakes, real_score
                               fake_scores, generator: Optional[torch.Generator] = None,
                               *, global_batch_size, gp_coefficient=10.0,
                               e_drift=1e-4, alpha=None, reference_grad_scale=False,
-                              include_gp=True):
+                              include_gp=True, replica_weight: Optional[float] = None):
     """Full WGAN-GP critic loss. Returns ``(loss, aux dict)``."""
+
+    def share(mean):
+        return mean if replica_weight is None else mean * replica_weight
+
     base = wgan_discriminator_loss(real_scores, fake_scores, global_batch_size)
     if include_gp:
-        gp_term = gp_coefficient * gradient_penalty(critic_fn_eval, reals, fakes,
-                                                    generator, alpha=alpha)
+        gp_term = gp_coefficient * share(gradient_penalty(critic_fn_eval, reals, fakes,
+                                                          generator, alpha=alpha))
     else:
         gp_term = torch.zeros((), dtype=base.dtype, device=base.device)
-    norm_term = e_drift * torch.mean(torch.abs(fake_scores) + torch.abs(real_scores))
+    norm_term = e_drift * share(torch.mean(torch.abs(fake_scores) + torch.abs(real_scores)))
     loss = base + gp_term + norm_term
     if reference_grad_scale:
-        loss = loss * fake_scores.shape[0]
+        loss = loss * (fake_scores.shape[0] if replica_weight is None else global_batch_size)
     return loss, {"wgan_loss": base, "gp_term": gp_term, "norm_term": norm_term}

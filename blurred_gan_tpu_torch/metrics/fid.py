@@ -218,6 +218,7 @@ class FIDMetric:
         self.seed = seed
         self._real: Optional[FeatureStats] = None
         self._fake: Optional[FeatureStats] = None
+        self._merged: Optional[Tuple[np.ndarray, ...]] = None
 
     def _build(self, batch: torch.Tensor) -> None:
         if self.feature_fn is None:
@@ -234,11 +235,30 @@ class FIDMetric:
         self._fake.update(self.feature_fn(fake_minibatch))
 
     def reset_states(self) -> None:
+        self._merged = None
         if self._real is not None:
             self._real.reset()
             self._fake.reset()
 
+    def cross_process_merge(self, allgather) -> None:
+        """Pool this process's feature moments with every other process's, so
+        that ``result()`` is the FID over all processes' pairs: an exact merge
+        (:func:`merge_feature_moments`) of two (D,) and two (D, D) arrays a
+        side. ``allgather(array) -> [each process's array]``
+        (``parallel.allgather``)."""
+
+        def pooled(stats: FeatureStats):
+            n, mu, m2 = stats.moments()
+            triples = [(float(a[0]), b, c) for a, b, c in zip(
+                allgather(np.float64([n])), allgather(mu), allgather(m2))]
+            _, mu_g, sig_g = merge_feature_moments(triples)
+            return mu_g, sig_g
+
+        self._merged = (*pooled(self._real), *pooled(self._fake))
+
     def result(self) -> float:
+        if self._merged is not None:
+            return frechet_distance(*self._merged)
         mu_r, sig_r = self._real.finalize()
         mu_f, sig_f = self._fake.finalize()
         return frechet_distance(mu_r, sig_r, mu_f, sig_f)

@@ -230,6 +230,19 @@ class SWDMetric:
             for d in bank:
                 d.clear()
 
+    def cross_process_merge(self, allgather) -> None:
+        """Replace each level's descriptor banks with their union over the
+        processes, in rank order, so that ``results()`` is the SWD over all
+        processes' pairs (the descriptors are raw; ``finalize_descriptors``
+        normalises the union). ``allgather(array) -> [each process's
+        array]`` (``parallel.allgather``)."""
+        for bank in (self.real_descriptors, self.fake_descriptors):
+            for lod, parts in enumerate(bank):
+                local = torch.cat(parts)
+                union = [torch.from_numpy(a).to(local.device)
+                         for a in allgather(local.cpu().numpy())]
+                bank[lod] = [torch.cat(union)]
+
     def get_metric_names(self) -> List[str]:
         return [f"SWDx1e3_{res}" for res in self.resolutions] + ["SWDx1e3_avg"]
 

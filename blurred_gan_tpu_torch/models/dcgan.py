@@ -40,6 +40,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from blurred_gan_tpu_torch.parallel import all_reduce_sum
+from blurred_gan_tpu_torch.runtime import process_count
+
 LEAKY_SLOPE = 0.3  # tf.keras.layers.LeakyReLU default
 KERNEL = 5
 
@@ -112,6 +115,13 @@ class BatchNorm(nn.Module):
     running buffers as ``r = 0.99 r + 0.01 batch`` with the biased variance;
     eval mode uses the running buffers. Statistics and arithmetic are float32
     whatever the input's dtype; the result is cast to ``dtype``.
+
+    In a data-parallel run (a process group of more than one) the train-mode
+    statistics are the global batch's (the JAX step's cross-replica
+    BatchNorm): a differentiable all-reduce of the per-feature count and sum,
+    then one of the squared deviations from the global mean (two passes, as
+    ``torch.var_mean`` takes them in one process). Every process then holds
+    the same running statistics.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-3,
@@ -131,7 +141,10 @@ class BatchNorm(nn.Module):
         # gradient to bfloat16 before their sum, as JAX's does.
         if self.training:
             dims = [0, *range(2, x.dim())]
-            var, mean = torch.var_mean(x.to(torch.float32), dim=dims, correction=0)
+            if process_count() > 1:
+                mean, var = _global_moments(x.to(torch.float32), dims)
+            else:
+                var, mean = torch.var_mean(x.to(torch.float32), dim=dims, correction=0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     mean.detach(), alpha=1.0 - self.momentum)
@@ -144,6 +157,18 @@ class BatchNorm(nn.Module):
         y = ((x.to(torch.float32) - mean.reshape(shape)) * scale.reshape(shape)
              + self.bias.reshape(shape))
         return y.to(self.dtype)
+
+
+def _global_moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased variance) per feature over every process's ``x``, in
+    two passes as ``torch.var_mean``: the mean from the summed counts and
+    sums, then the variance from the summed squared deviations."""
+    count = x.new_full((1,), x.numel() // x.shape[1])
+    sums = all_reduce_sum(torch.cat([count, x.sum(dims)]))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = sums[1:] / sums[0]
+    var = all_reduce_sum(((x - mean.reshape(shape)) ** 2).sum(dims)) / sums[0]
+    return mean, var
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,8 +270,12 @@ class DCGANDiscriminator(nn.Module):
     """[Conv s2 + LeakyReLU + Dropout]* -> NHWC flatten -> Dense(1).
 
     Dropout is active in train mode and draws its masks from the
-    ``generator`` passed to ``forward``. The convolutions, LeakyReLUs and
-    dropout run in ``compute_dtype``, the Dense in float32.
+    ``generator`` passed to ``forward``. ``rows = (global_rows, index)``
+    draws each mask for a batch of ``global_rows`` and keeps the rows
+    ``index`` (a data-parallel process's share of the global critic input),
+    so the processes together use the masks one process draws. The
+    convolutions, LeakyReLUs and dropout run in ``compute_dtype``, the Dense
+    in float32.
     """
 
     def __init__(self, channels: Sequence[int] = (16, 32, 64, 128, 256, 512),
@@ -266,13 +295,18 @@ class DCGANDiscriminator(nn.Module):
         self.dense = nn.Linear(ch * h * w, 1)
         init_weights(self, generator)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, torch.Tensor]] = None):
         keep = 1.0 - self.dropout_rate
         x = _cast(x, self.compute_dtype)
         for conv in self.convs:
             x = _leaky(conv(x))
             if self.training and self.dropout_rate > 0:
-                mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                if rows is None:
+                    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                else:
+                    mask = (torch.rand((rows[0], *x.shape[1:]), generator=generator,
+                                       device=x.device) < keep)[rows[1]]
                 x = torch.where(mask, x / _weak(keep, x.dtype), torch.zeros_like(x))
         return self.dense(x.permute(0, 2, 3, 1).flatten(1).to(torch.float32))
 

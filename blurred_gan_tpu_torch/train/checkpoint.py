@@ -29,6 +29,13 @@ Retention: the ``max_to_keep`` latest, plus every checkpoint saved at least
 the rule holds across restarts). The saves are synchronous. The step draws
 its randomness from ``(seed, n_batches)``, so no generator state is saved.
 
+In a data-parallel run (``runtime.py``) every process holds the same state:
+rank 0 alone writes a checkpoint and prunes old ones, and every process waits
+at a barrier after the rename, so none reads a directory that is being
+written; every process restores the same file. A save on SIGINT / SIGTERM
+(``barrier=False``) is rank 0's alone, with no barrier: the processes may
+receive the signal at different steps.
+
 Also the JSON sidecars (``hyper_parameters.json``, ``train_config.json``) and
 the save on SIGINT / SIGTERM.
 """
@@ -42,7 +49,9 @@ import signal
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from blurred_gan_tpu_torch.runtime import process_count, process_index
 from blurred_gan_tpu_torch.train.state import set_capturable
 
 _SUFFIX = ".pt"
@@ -69,8 +78,19 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, samples_seen: int, state, aux: Optional[Dict] = None) -> str:
-        """Write the checkpoint of ``state`` keyed by ``samples_seen``; returns its path."""
+    def save(self, samples_seen: int, state, aux: Optional[Dict] = None,
+             barrier: bool = True) -> str:
+        """Write the checkpoint of ``state`` keyed by ``samples_seen``; returns
+        its path. In a data-parallel run only rank 0 writes, and with
+        ``barrier`` every process waits until it has."""
+        path = self._path(int(samples_seen))
+        if process_index() == 0:
+            self._write(path, state, aux)
+        if barrier and process_count() > 1:
+            dist.barrier()
+        return path
+
+    def _write(self, path: str, state, aux: Optional[Dict]) -> None:
         payload = {
             "generator": state.generator.state_dict(),
             "discriminator": state.discriminator.state_dict(),
@@ -82,12 +102,10 @@ class CheckpointManager:
         }
         if state.g_ema is not None:
             payload["g_ema"] = list(state.g_ema)
-        path = self._path(int(samples_seen))
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
         self._remove_old()
-        return path
 
     def _remove_old(self) -> None:
         steps = self.all_steps()

@@ -32,7 +32,21 @@ on the device, K steps per chunk (a CUDA graph replayed K times on the card),
 metrics; hooks and logging then replay per step, so checkpoints and grids
 land on chunk boundaries.
 
-Not ported: the multi-process paths (ROADMAP queue 1, item 12).
+Data parallelism (a process group of N > 1, ``runtime.py``; the JAX
+package's multi-process paths): each process trains on its shard of every
+epoch (``DataPipeline(shard_index=rank, shard_count=N)``) at a local batch of
+``global_batch_size / N``, and the step (``train/step.py``) makes the
+gradients, the BatchNorm statistics and the logged scalars global, so σ, the
+adaptive controller and every hook agree across the processes; the counters
+and the hooks count global examples. Rank 0 alone writes the logs, the
+sidecars, the manifest, the PNGs and the checkpoints; every process restores
+the same checkpoint, and the processes' states are compared at construction
+(``parallel.check_replicas_equal``). A sample grid shows rank 0's contiguous
+slice of the fixed latents; ``evaluate`` scores each process's reals shard
+against its slice of the latents and merges SWD and FID across the processes
+(``cross_process_merge``), logging a metric without a merge as
+``eval_localshard_*``. Metric feeders measure each process's own pairs, as in
+the JAX package. ``fit_device_resident`` is single-process.
 """
 
 from __future__ import annotations
@@ -47,10 +61,12 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from blurred_gan_tpu_torch import parallel
 from blurred_gan_tpu_torch.data.pipeline import DataPipeline
 from blurred_gan_tpu_torch.metrics.fid import FIDMetric
 from blurred_gan_tpu_torch.metrics.swd import SWDMetric
 from blurred_gan_tpu_torch.ops.blur import blur_images
+from blurred_gan_tpu_torch.runtime import process_count, process_index
 from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController, BlurDecayController
 from blurred_gan_tpu_torch.train.checkpoint import (
     CheckpointManager, save_on_interrupt, save_sidecars)
@@ -164,10 +180,13 @@ class TrainerConfig:
 class Trainer:
     """Wires state, step, σ controller, hooks, metrics and checkpoints together.
 
-    ``device``: where the networks live and the steps run. ``history``: the
-    logs of the last ``HISTORY_STEPS`` steps, each with ``n_batches``,
-    ``n_img`` and the step's ``images_per_sec`` (between consecutive steps'
-    host work; in the chunked mode, its chunk's). ``chunk_runner``: the
+    ``device``: where the networks live and the steps run. ``world``,
+    ``rank``, ``is_main``: the data-parallel group's size, this process's
+    rank, and whether it is rank 0 (1, 0 and True without a group).
+    ``history``: the logs of the last ``HISTORY_STEPS`` steps, each with
+    ``n_batches``, ``n_img`` and the step's ``images_per_sec`` (global
+    examples between consecutive steps' host work; in the chunked mode, its
+    chunk's). ``chunk_runner``: the
     chunked mode's runner (its graph and capture time), kept for the next
     ``fit_device_resident`` call while it can serve it.
     """
@@ -187,9 +206,14 @@ class Trainer:
         self.adaptive_controller = adaptive_controller
         self.ada_state = adaptive_controller.init() if adaptive_controller else None
         self.metric_feeders = list(metric_feeders)
+        self.world, self.rank = process_count(), process_index()
+        self.is_main = self.rank == 0
+        if hparams.global_batch_size % self.world:
+            raise ValueError(f"global batch {hparams.global_batch_size} does not split over "
+                             f"{self.world} processes")
 
         os.makedirs(self.cfg.log_dir, exist_ok=True)
-        self.logger = MetricsLogger(self.cfg.log_dir)
+        self.logger = MetricsLogger(self.cfg.log_dir, enabled=self.is_main)
         self.ckpt = CheckpointManager(self.cfg.checkpoint_dir
                                       or os.path.join(self.cfg.log_dir, "checkpoints"))
         self.state: TrainState = create_train_state(gan, hparams, device=self.device,
@@ -204,7 +228,7 @@ class Trainer:
         grid_rng = torch.Generator().manual_seed(int(grid_seed.generate_state(1, np.uint64)[0]))
         self.grid_latents = gan.sample_latents(GRID_SAMPLES, grid_rng, "cpu").to(self.device)
 
-        if config_sidecars:
+        if config_sidecars and self.is_main:
             save_sidecars(self.cfg.log_dir, **config_sidecars)
             hp = config_sidecars.get("hparams")
             self.logger.hparams(hp.asdict() if hp is not None else {})
@@ -217,6 +241,7 @@ class Trainer:
         self._fetch_warmed = False
         self.chunk_runner: Optional[ChunkRunner] = None
         self._maybe_restore()
+        parallel.check_replicas_equal(self.state)
         self._build_hooks()
 
     # ------------------------------------------------------------------ setup
@@ -224,7 +249,9 @@ class Trainer:
     def _write_run_manifest(self) -> None:
         """``run_manifest.json``: what the sidecars do not say, for post-hoc
         tools. Written by ``fit``, not at construction, so a reader that builds
-        a Trainer never overwrites a run's manifest."""
+        a Trainer never overwrites a run's manifest; by rank 0 alone."""
+        if not self.is_main:
+            return
         manifest = {"dataset": getattr(self.dataset, "name", "unknown"),
                     "image_shape": list(self.dataset.image_shape),
                     "num_examples": int(getattr(self.dataset, "num_examples", 0)),
@@ -277,15 +304,19 @@ class Trainer:
 
     def _sample_grid(self, samples_seen: int, logs: Dict) -> None:
         """The fixed latents' samples as a grid (PNG and image summary), and
-        their blurred view at the current σ (image summary)."""
-        samples = self.sample_fn(self.state, self.grid_latents)
+        their blurred view at the current σ (image summary). In a
+        data-parallel run each process samples its contiguous slice of the
+        latents and rank 0's slice is the grid."""
+        per = self.grid_latents.shape[0] // self.world
+        samples = self.sample_fn(self.state,
+                                 self.grid_latents[self.rank * per:(self.rank + 1) * per])
         grid = samples_grid(normalize_images(_nhwc_numpy(samples)))
         self.logger.image(samples_seen, "samples_grid", grid)
         if self.cfg.show_blurred_samples and self._current_sigma > 0:
             blurred = blur_images(samples, self._current_sigma, impl=self.gan.blur_impl)
             self.logger.image(samples_seen, "samples_grid_blurred",
                               samples_grid(normalize_images(_nhwc_numpy(blurred))))
-        if self.cfg.save_sample_pngs:
+        if self.cfg.save_sample_pngs and self.is_main:
             write_png(os.path.join(self.cfg.log_dir, f"samples_grid_{samples_seen:08d}.png"),
                       grid)
 
@@ -328,18 +359,21 @@ class Trainer:
         """Train until ``total_examples`` images have been seen (across
         restarts), ``max_steps`` steps have run in this call, or the adaptive
         controller stops; then checkpoint and return the state. Adam runs
-        non-capturable here, its step counters on the host."""
+        non-capturable here, its step counters on the host. In a
+        data-parallel run each process reads its shard of every epoch at the
+        local batch."""
         self._fetch_warmed = False
         self._write_run_manifest()
         set_capturable(self.state.g_opt, False)
         set_capturable(self.state.d_opt, False)
-        bs = self.hparams.global_batch_size
-        self._steps_per_epoch = max(self.dataset.num_examples // bs, 1)
+        local_bs = self.hparams.global_batch_size // self.world
+        self._steps_per_epoch = max(self.dataset.num_examples // self.world // local_bs, 1)
         n = self.state.n_batches
         # Resume the deterministic stream at the exact batch.
-        pipe = DataPipeline(self.dataset, bs, seed=self.cfg.seed,
+        pipe = DataPipeline(self.dataset, local_bs, seed=self.cfg.seed,
                             start_epoch=n // self._steps_per_epoch,
-                            start_batch=n % self._steps_per_epoch)
+                            start_batch=n % self._steps_per_epoch,
+                            shard_index=self.rank, shard_count=self.world)
         steps_done = 0
         self._throughput = (time.time(), self.samples_seen)
         self._t_last_step = time.perf_counter()
@@ -348,7 +382,7 @@ class Trainer:
 
         def interrupt_save():
             print("[trainer] interrupted - saving checkpoint")
-            self.ckpt.save(self.samples_seen, self.state, self._aux_dict())
+            self.ckpt.save(self.samples_seen, self.state, self._aux_dict(), barrier=False)
 
         # defer=True: the handler only records the signal; check() saves
         # between steps, never in the middle of one.
@@ -405,8 +439,9 @@ class Trainer:
         values = self._fetch(host, ready, "step-metrics fetch").astype(np.float64).tolist()
         logs = dict(zip(names, values))
         self._fill_gen_loss(logs)
+        examples = reals.shape[0] * self.world  # the global batch
         now = time.perf_counter()
-        step_rate = reals.shape[0] / (now - self._t_last_step)
+        step_rate = examples / (now - self._t_last_step)
         self._t_last_step = now
 
         if self.adaptive_controller is not None:
@@ -421,11 +456,11 @@ class Trainer:
 
         reals_f = None
         interval = self.cfg.image_summaries_interval_batches
-        if interval and n_batches % interval == 0:
+        if interval and n_batches % interval == 0 and self.is_main:
             reals_f = to_unit_range(reals)
             self._image_summaries(reals_f, fakes, sigma)
 
-        self.hooks.after_step(reals.shape[0], logs)
+        self.hooks.after_step(examples, logs)
         self._maybe_log_epoch(n_batches, n_img, logs)
         for feeder in self.metric_feeders:
             if feeder.recording:
@@ -460,6 +495,9 @@ class Trainer:
         with the same dataset and ``chunk_steps``; otherwise it is released
         before the next one is built.
         """
+        if self.world > 1:
+            raise RuntimeError(f"the device-resident mode is single-process; this run has "
+                               f"{self.world} processes (use fit)")
         images = getattr(self.dataset, "images", None)
         if images is None:
             raise ValueError("the device-resident mode needs a memory-resident dataset "
@@ -484,7 +522,7 @@ class Trainer:
 
         def interrupt_save():
             print("[trainer] interrupted - saving checkpoint")
-            self.ckpt.save(self.samples_seen, self.state, self._aux_dict())
+            self.ckpt.save(self.samples_seen, self.state, self._aux_dict(), barrier=False)
 
         chunks_done = 0
         with save_on_interrupt(interrupt_save, defer=True) as check_interrupt:
@@ -578,9 +616,10 @@ class Trainer:
             return
         logs["images_per_sec"] = (n_img - n_last) / (t_now - t_last)
         self._throughput = (t_now, n_img)
-        print(f"[trainer] {n_img} examples ({n_batches} batches) "
-              f"d_loss={logs['disc_loss']:+.4f} std={logs['std']:.4f} "
-              f"{logs['images_per_sec']:.1f} img/s{suffix}", flush=True)
+        if self.is_main:
+            print(f"[trainer] {n_img} examples ({n_batches} batches) "
+                  f"d_loss={logs['disc_loss']:+.4f} std={logs['std']:.4f} "
+                  f"{logs['images_per_sec']:.1f} img/s{suffix}", flush=True)
 
     def _maybe_log_epoch(self, n_batches: int, n_img: int, logs: Dict) -> None:
         """``epoch_*`` scalars at each epoch boundary: the last batch's logs."""
@@ -593,36 +632,57 @@ class Trainer:
                  ) -> Dict[str, float]:
         """SWD and FID (random-conv features) between dataset reals and fresh
         samples, ``num_samples`` pairs, logged as ``eval_*``. ``metrics``:
-        objects with ``update_state`` / ``results`` or ``result``."""
+        objects with ``update_state`` / ``results`` or ``result``.
+
+        In a data-parallel run each process scores ``num_samples`` pairs of
+        its own: its shard of the reals stream (training's sharding) against
+        its contiguous slice of each batch's latents. A metric with
+        ``cross_process_merge`` is then merged over the processes
+        (``num_samples × N`` pairs) and logged as ``eval_*``; one without
+        stays the process's own and is logged as ``eval_localshard_*``."""
         if metrics is None:
             metrics = [SWDMetric(), FIDMetric()]
         bs = self.hparams.global_batch_size
+        local_bs = bs // self.world
         latent_rng = torch.Generator().manual_seed(seed)
-        it = self.dataset.batches(bs, seed=seed)
+        it = self.dataset.batches(local_bs, seed=seed, shard_index=self.rank,
+                                  shard_count=self.world)
+        rows = slice(self.rank * local_bs, (self.rank + 1) * local_bs)
         done = 0
         while done < num_samples:
-            take = min(bs, num_samples - done)
+            take = min(local_bs, num_samples - done)
             reals = to_unit_range(torch.from_numpy(next(it)[:take]).to(self.device))
-            latents = self.gan.sample_latents(bs, latent_rng, "cpu").to(self.device)
+            latents = self.gan.sample_latents(bs, latent_rng, "cpu")[rows].to(self.device)
             fakes = self.sample_fn(self.state, latents)[:take]
             for m in metrics:
                 m.update_state(reals, fakes)
             done += take
         out: Dict[str, float] = {}
+        local_out: Dict[str, float] = {}
         for m in metrics:
+            merge = getattr(m, "cross_process_merge", None)
+            merged = self.world > 1 and merge is not None
+            if merged:
+                merge(parallel.allgather)
+            sink = out if self.world == 1 or merged else local_out
             if hasattr(m, "results"):
-                out.update(m.results())
+                sink.update(m.results())
             else:
-                out[m.name] = float(m.result())
+                sink[m.name] = float(m.result())
             m.reset_states()
-        self.logger.scalars(self.samples_seen, out, prefix="eval_")
-        return out
+        if out:
+            self.logger.scalars(self.samples_seen, out, prefix="eval_")
+        if local_out:
+            self.logger.scalars(self.samples_seen, local_out, prefix="eval_localshard_")
+        return {**out, **local_out}
 
     def export_weights(self, directory: str) -> None:
         """The generator's and the critic's ``state_dict`` as ``generator.pt``
         and ``discriminator.pt``; with an average, also ``generator_ema.pt``:
         the generator's ``state_dict`` with the averaged weights and the live
-        BatchNorm statistics."""
+        BatchNorm statistics. Rank 0 alone writes them."""
+        if not self.is_main:
+            return
         os.makedirs(directory, exist_ok=True)
         generator = self.state.generator.state_dict()
         torch.save(generator, os.path.join(directory, "generator.pt"))

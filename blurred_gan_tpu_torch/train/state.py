@@ -58,11 +58,13 @@ class GAN:
         self.generator.train(train)
         return self.generator(z)
 
-    def critic(self, images, sigma, *, train: bool, generator=None):
-        """Blur (if configured) then score. ``train`` turns dropout on."""
+    def critic(self, images, sigma, *, train: bool, generator=None, rows=None):
+        """Blur (if configured) then score. ``train`` turns dropout on;
+        ``rows``: the dropout rows of a data-parallel process
+        (``DCGANDiscriminator``)."""
         x = blur_images(images, sigma, impl=self.blur_impl) if self.blurred else images
         self.discriminator.train(train)
-        return self.discriminator(x, generator=generator)
+        return self.discriminator(x, generator=generator, rows=rows)
 
 
 class RMSprop(torch.optim.Optimizer):

@@ -60,6 +60,30 @@ every step, in this order:
 A step can also take ``flip``, ``z_d``, ``z_g`` and ``alpha`` pinned through
 ``noise``, each on its own.
 
+Data parallelism (a process group of N > 1, ``runtime.py``): each process
+takes its 1/N of the global batch B (rows ``[r·b, (r+1)·b)`` of the global
+batch for rank r and local batch b) and holds a whole replica of the state.
+
+- Every draw is made at the global batch's shape from the identically
+  seeded ``state.rng``, and each process keeps its own rows, so N processes
+  consume the stream one process consumes: the flip mask, ``z_d``, ``z_g``,
+  ``α`` and a pinned ``noise`` (given at the global shape). The critic's
+  dropout masks are drawn for the global input ``cat([fakes, reals])`` (2B
+  rows) and each process keeps its rows of both halves: N times the draws.
+- The penalty's and the drift's batch means carry the weight 1/N
+  (``losses/wgan.py``); the gradients are summed over the processes between
+  ``torch.autograd.grad`` and the optimizer (``parallel.all_reduce_grads``),
+  and the step's scalars are made global by one all-reduce. The generator's
+  BatchNorm takes the global batch's statistics (``models/dcgan.py``).
+- With ``grad_accumulation_steps = K`` the microbatches are the global
+  batch's: microbatch i is global rows ``[i·B/K, (i+1)·B/K)``, of which each
+  process takes ``B/(K·N)`` at its rank's offset (the JAX sharded
+  ``step_accum``). The processes gather the reals first (uint8 until then,
+  B images) since a microbatch's rows come from several processes' shards.
+- ``n_img`` counts global examples.
+
+With one process every one of these is the plain step, to the bit.
+
 With bfloat16 networks (``--bf16``; ``models/dcgan.py``) the reals, the draws
 and the pinned noise stay float32. ``torch.cat([fakes, reals])`` promotes
 ``--fast_gen``'s bfloat16 fakes to float32, as ``jnp.concatenate`` does, and
@@ -85,8 +109,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from blurred_gan_tpu_torch import parallel
 from blurred_gan_tpu_torch.losses.wgan import (
     wgan_discriminator_loss, wgan_generator_loss, wgangp_discriminator_loss)
+from blurred_gan_tpu_torch.runtime import process_count, process_index
 from blurred_gan_tpu_torch.train.state import GAN, TrainState
 
 Phase = Tuple[bool, bool]  # (do_gp, do_gen)
@@ -158,6 +184,9 @@ def make_step_body(gan: GAN, hparams):
             "grad_accumulation_steps > 1 cannot reproduce the reference's ×B gradient "
             "(reference_grad_scale): the scale is per loss call, so microbatches would "
             "scale by B/K instead of B. Use one or the other.")
+    world, rank = process_count(), process_index()
+    dp = world > 1
+    replica_weight = 1.0 / world if dp else None
     consts: Dict[Tuple[float, torch.device], torch.Tensor] = {}
 
     def const(value: float, device) -> torch.Tensor:
@@ -168,17 +197,24 @@ def make_step_body(gan: GAN, hparams):
             consts[key] = torch.full((), value, dtype=torch.float32, device=device)
         return consts[key]
 
-    def disc_loss(reals, fakes, sigma, rng, alpha, with_gp: bool, term_scale: float):
+    def disc_loss(reals, fakes, sigma, rng, alpha, with_gp: bool, term_scale: float,
+                  rows=None):
         batch = reals.shape[0]
-        scores = gan.critic(torch.cat([fakes, reals]), sigma, train=True, generator=rng)
+        scores = gan.critic(torch.cat([fakes, reals]), sigma, train=True, generator=rng,
+                            rows=rows)
         fake_scores, real_scores = scores[:batch], scores[batch:]
         if use_gp:
+            if rows is not None and alpha is None and with_gp:
+                # α for the global rows, drawn where the penalty draws it.
+                alpha = torch.rand((rows[0] // 2, 1, 1, 1), generator=rng,
+                                   device=reals.device, dtype=reals.dtype)[rows[1][:batch]]
             loss, aux = wgangp_discriminator_loss(
                 lambda x: gan.critic(x, sigma, train=False), reals, fakes,
                 real_scores, fake_scores, rng, global_batch_size=global_bs,
                 gp_coefficient=gp_coefficient * gp_scale * term_scale,
                 e_drift=e_drift * term_scale, alpha=alpha,
-                reference_grad_scale=reference_grad_scale, include_gp=with_gp)
+                reference_grad_scale=reference_grad_scale, include_gp=with_gp,
+                replica_weight=replica_weight)
         else:
             loss = wgan_discriminator_loss(real_scores, fake_scores, global_bs)
             zero = const(0.0, reals.device)
@@ -207,10 +243,14 @@ def make_step_body(gan: GAN, hparams):
         if reals.dtype == torch.uint8:
             reals = (reals.to(torch.float32) - 127.5) / 127.5
         reals = reals.permute(0, 3, 1, 2).contiguous()
-        batch = reals.shape[0]
+        batch = reals.shape[0] * world  # the global batch
         if batch % accum:
             raise ValueError(f"global batch {batch} is not divisible by "
                              f"grad_accumulation_steps={accum}")
+        m = batch // accum  # a microbatch's global rows
+        if m % world:
+            raise ValueError(f"a microbatch of {m} does not split over {world} processes")
+        per = m // world  # this process's rows of each microbatch
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=device)
         rng = state.rng
         noise = noise or {}
@@ -220,11 +260,23 @@ def make_step_body(gan: GAN, hparams):
                 return torch.as_tensor(noise[name], dtype=torch.float32, device=device)
             return torch.rand(shape, generator=rng, device=device)
 
+        def mine(t, i):
+            """This process's rows of microbatch ``i`` of a global-batch tensor."""
+            start = i * m + rank * per
+            return t[start:start + per]
+
+        if dp and accum > 1:
+            reals = parallel.all_gather_rows(reals)
+        # Unaccumulated, a process's reals are its rows of the one microbatch.
+        local_reals = (lambda i: reals) if dp and accum == 1 else (lambda i: mine(reals, i))
         if flip_augment:
-            reals = random_hflip(reals, rng, noise.get("flip"))
+            mask = noise.get("flip")
+            if mask is None:
+                mask = torch.rand((batch,), generator=rng, device=device) < 0.5
+            reals = random_hflip(reals, mask=mine(mask, 0) if dp and accum == 1 else mask)
+        rows = (2 * m, parallel.replica_rows(per, m).to(device)) if dp else None
 
         # ---- critic step, over K microbatches (K = 1: the batch itself) ----
-        m = batch // accum
         z_d = drawn("z_d", (batch, gan.latent_size))
         # Unaccumulated, the penalty draws α itself, after the critic's dropout
         # (the default stream); accumulated, α is drawn for the full batch.
@@ -233,18 +285,18 @@ def make_step_body(gan: GAN, hparams):
         d_params = list(state.discriminator.parameters())
         pieces, micro_fakes = [], []
         for i in range(accum):
-            mb = slice(i * m, (i + 1) * m)
             with torch.no_grad():
-                micro_fakes.append(gan.generate(z_d[mb], train=False))
-            loss_i, aux_i = disc_loss(reals[mb], micro_fakes[-1], sigma, rng,
-                                      None if alpha is None else alpha[mb], do_gp, 1.0 / accum)
+                micro_fakes.append(gan.generate(mine(z_d, i), train=False))
+            loss_i, aux_i = disc_loss(local_reals(i), micro_fakes[-1], sigma, rng,
+                                      None if alpha is None else mine(alpha, i), do_gp,
+                                      1.0 / accum, rows)
             pieces.append((loss_i, aux_i, torch.autograd.grad(loss_i, d_params)))
         d_loss, aux, d_grads = summed(pieces)
         fakes = micro_fakes[0] if accum == 1 else torch.cat(micro_fakes)
         if accum > 1:  # the score means summed over K equal microbatches
             aux["fake_scores"] = aux["fake_scores"] / accum
             aux["real_scores"] = aux["real_scores"] / accum
-        _apply(state.d_opt, d_params, d_grads)
+        _apply(state.d_opt, d_params, parallel.all_reduce_grads(d_grads))
 
         # ---- generator step, through the updated critic ----
         if do_gen:
@@ -252,10 +304,10 @@ def make_step_body(gan: GAN, hparams):
             g_params = list(state.generator.parameters())
             pieces = []
             for i in range(accum):
-                loss_i = gen_loss(z_g[i * m:(i + 1) * m], sigma)
+                loss_i = gen_loss(mine(z_g, i), sigma)
                 pieces.append((loss_i, None, torch.autograd.grad(loss_i, g_params)))
             g_loss, _, g_grads = summed(pieces)
-            _apply(state.g_opt, g_params, g_grads)
+            _apply(state.g_opt, g_params, parallel.all_reduce_grads(g_grads))
             if ema_decay > 0.0:
                 with torch.no_grad():
                     # ema·d + p·(1−d), in the JAX step's order (lerp rounds
@@ -267,7 +319,8 @@ def make_step_body(gan: GAN, hparams):
 
         metrics = {"disc_loss": d_loss, "gen_loss": g_loss,
                    "did_gen_step": const(1.0 if do_gen else 0.0, device), "std": sigma, **aux}
-        return {k: v.detach() for k, v in metrics.items()}, fakes
+        metrics = parallel.all_reduce_metrics({k: v.detach() for k, v in metrics.items()})
+        return metrics, fakes
 
     return body
 
@@ -279,16 +332,19 @@ def make_train_step(gan: GAN, hparams, *, seed: int = 0):
     ``sigma``: the blur σ for this step. ``noise``: optional dict with any of
     ``flip`` (B,) bool, ``z_d``, ``z_g`` (B, latent) and ``alpha`` (B, 1, 1, 1)
     tensors. ``metrics`` holds 0-d tensors; ``fakes`` are the critic step's
-    NCHW fakes. The phase comes from ``state.n_batches``.
+    NCHW fakes. The phase comes from ``state.n_batches``. In a data-parallel
+    run ``reals`` is this process's share, ``noise`` the global batch's, and
+    ``fakes`` this process's.
     """
     body = make_step_body(gan, hparams)
+    world = process_count()
 
     def step(state: TrainState, reals: torch.Tensor, sigma,
              noise: Optional[Dict[str, torch.Tensor]] = None):
         do_gp, do_gen = step_phase(hparams, state.n_batches)
         state.rng.manual_seed(step_seed(seed, state.n_batches))
         metrics, fakes = body(state, reals, sigma, noise, do_gp=do_gp, do_gen=do_gen)
-        state.n_img += reals.shape[0]
+        state.n_img += reals.shape[0] * world
         state.n_batches += 1
         return metrics, fakes
 

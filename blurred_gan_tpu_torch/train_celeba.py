@@ -21,6 +21,10 @@ replay of the captured train step (``train/fast.py``).
     python -m blurred_gan_tpu_torch.train_celeba --device_resident --chunk_steps 100
     python -m blurred_gan_tpu_torch.train_celeba --bf16 --fast_gen --device_resident
     python -m blurred_gan_tpu_torch.train_celeba --resolution 64 --device cpu --max_steps 3
+    python -m torch.distributed.run --nproc_per_node 2 -m blurred_gan_tpu_torch.train_celeba
+
+The last trains data-parallel, one process per card (``--batch_size`` each, the
+global batch twice it; ``--device_resident`` is single-process).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from blurred_gan_tpu_torch.data.pipeline import load_celeba
 from blurred_gan_tpu_torch.entry import (
-    add_common_arguments, entry_point_feeders, make_trainer, run, setup)
+    add_common_arguments, entry_point_feeders, make_trainer, run, setup, shutdown, start_line)
 from blurred_gan_tpu_torch.models.dcgan import celeba_discriminator, celeba_generator
 from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController, BlurDecayController
 from blurred_gan_tpu_torch.train.loop import Trainer
@@ -121,11 +125,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     compute = "bfloat16" if args.bf16 else "float32"
     if args.bf16 and args.fast_gen:
         compute += "+fast_gen"
-    print(f"[train_celeba] res={args.resolution} bs={trainer.hparams.global_batch_size} "
-          f"device={trainer.device} compute={compute} dataset={trainer.dataset.name} "
-          f"log_dir={trainer.cfg.log_dir}", flush=True)
+    start_line("train_celeba", trainer, res=args.resolution, bs=trainer.hparams.batch_size,
+               device=trainer.device, compute=compute, dataset=trainer.dataset.name,
+               log_dir=trainer.cfg.log_dir)
     run(trainer, args, total_examples, "train_celeba")
     trainer.close()
+    shutdown()
     return trainer
 
 

@@ -14,6 +14,10 @@ the latest checkpoint in the run directory. Data comes from a local
     python -m blurred_gan_tpu_torch.train_mnist --epochs 10
     python -m blurred_gan_tpu_torch.train_mnist --device_resident --adaptive
     python -m blurred_gan_tpu_torch.train_mnist --device cpu --max_steps 3 --log_dir /tmp/mnist
+    python -m torch.distributed.run --nproc_per_node 2 -m blurred_gan_tpu_torch.train_mnist
+
+The last trains data-parallel, one process per card (``--batch_size`` each;
+``--device cpu`` runs the processes on the CPU over gloo).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional, Sequence
 
 from blurred_gan_tpu_torch.data.pipeline import load_mnist
 from blurred_gan_tpu_torch.entry import (
-    add_common_arguments, entry_point_feeders, make_trainer, run, setup)
+    add_common_arguments, entry_point_feeders, make_trainer, run, setup, shutdown, start_line)
 from blurred_gan_tpu_torch.models.dcgan import mnist_discriminator, mnist_generator
 from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController, BlurDecayController
 from blurred_gan_tpu_torch.train.loop import Trainer
@@ -69,11 +73,12 @@ def build_trainer(args: argparse.Namespace, feeders: Optional[list] = None):
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     args = parse_args(argv)
     trainer, total_examples = build_trainer(args)
-    print(f"[train_mnist] bs={trainer.hparams.global_batch_size} device={trainer.device} "
-          f"dataset={trainer.dataset.name} total_examples={total_examples} "
-          f"log_dir={trainer.cfg.log_dir}", flush=True)
+    start_line("train_mnist", trainer, bs=trainer.hparams.batch_size, device=trainer.device,
+               dataset=trainer.dataset.name, total_examples=total_examples,
+               log_dir=trainer.cfg.log_dir)
     run(trainer, args, total_examples, "train_mnist")
     trainer.close()
+    shutdown()
     return trainer
 
 

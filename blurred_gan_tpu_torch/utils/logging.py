@@ -4,7 +4,9 @@ Every record goes to ``<log_dir>/events.jsonl``, one JSON object per line,
 with ``"step"`` = images seen, so runs compare across batch sizes. TensorBoard
 is an optional second sink, ``torch.utils.tensorboard``, used where it
 imports (it needs the ``tensorboard`` package); images go only there, since
-the sample-grid hook writes its own PNGs.
+the sample-grid hook writes its own PNGs. A logger made with
+``enabled=False`` writes nothing (a data-parallel run's processes other than
+rank 0, so one ``events.jsonl`` holds the run).
 """
 
 from __future__ import annotations
@@ -28,14 +30,18 @@ def _summary_writer(log_dir: str):
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
-        self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a", buffering=1)
-        self._tb = _summary_writer(log_dir)
+        self.enabled = enabled
+        self._jsonl = (open(os.path.join(log_dir, "events.jsonl"), "a", buffering=1)
+                       if enabled else None)
+        self._tb = _summary_writer(log_dir) if enabled else None
 
     def scalars(self, step: int, values: Dict[str, float], prefix: str = "") -> None:
         """One record of the real-valued entries of ``values``; others are dropped."""
+        if not self.enabled:
+            return
         clean = {prefix + k: float(v) for k, v in values.items()
                  if isinstance(v, numbers.Real)}
         self._jsonl.write(json.dumps({"step": int(step), "time": time.time(), **clean}) + "\n")
@@ -49,6 +55,8 @@ class MetricsLogger:
             self._tb.add_image(tag, image_hwc_uint8, int(step), dataformats="HWC")
 
     def hparams(self, hparams: Dict) -> None:
+        if not self.enabled:
+            return
         self._jsonl.write(json.dumps({"hparams": hparams}) + "\n")
         if self._tb is not None:
             self._tb.add_hparams({k: v for k, v in hparams.items()
@@ -56,16 +64,22 @@ class MetricsLogger:
 
     def text(self, step: int, tag: str, text: str) -> None:
         """One record ``{"step": step, tag: text}`` (and a TensorBoard text summary)."""
+        if not self.enabled:
+            return
         self._jsonl.write(json.dumps({"step": int(step), tag: text}) + "\n")
         if self._tb is not None:
             self._tb.add_text(tag, text, int(step))
 
     def flush(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.flush()
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self.flush()
         self._jsonl.close()
         if self._tb is not None:

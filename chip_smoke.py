@@ -5,6 +5,11 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
+(Phase 16 runs this file again in processes of its own, with ``--dp_worker``
+or ``--nccl_probe``. ``python3 chip_smoke.py --data_parallel`` runs the build,
+phase 4 and phase 16 alone: on a machine with two cards or more, NCCL across
+two of them as well.)
+
 Phases, each of which raises on failure:
 
 1. require a CUDA device; print the card's name and power limit (nvidia-smi);
@@ -116,6 +121,18 @@ Phases, each of which raises on failure:
     image it says so and runs the store's half: the CLI on an mnist.npz,
     the store against the array in streams, losses and ``fit`` images/s,
     and ``--device_resident`` from the store;
+16. data parallelism at phase 4's configuration under deterministic cuDNN,
+    each run a process of its own (``chip_smoke.py --dp_worker <json>``,
+    alone or under ``torch.distributed.run``): (a) a group of one over NCCL
+    against no group, 12 steps of ``fit`` bit-equal, and phase 4's first
+    step; (b) two ranks at b16 on ``cuda:0`` over gloo against one process at
+    b32 on their concatenated reals (the losses at steps 1 and 3 within
+    ``DP_LOSS_TOL``), 6 kernel launches a rank-step at 96 and 48 planes,
+    ``evaluate``'s merged SWD and random-conv FID against one process over
+    the same pairs, a 2-rank resume bit for bit, both runs' img/s and the
+    gradients' all-reduce ms, and the kernel timed at 96 and 48 planes; what
+    NCCL says to two ranks on one card; (c) with two cards or more, (b) over
+    NCCL across two cards, else a line saying it was not run;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -138,6 +155,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 RES, BATCH, SIGMA0, STEPS, NUM_EXAMPLES = 128, 32, 5.0, 12, 2048
@@ -217,6 +235,13 @@ FOLDER_STEPS, FOLDER_ROUNDS, FOLDER_CHUNKS = 24, 2, 3
 FOLDER_SCORED, FOLDER_FID_DIM = 512, 64
 CELEBA_IMAGES = 202_599
 NATIVE_VS_PIL = dict(mean=1.5, p99=3)
+# Phase 16: the processes of the data-parallel runs, the pairs each scores
+# in evaluate and the FID's random-conv feature count (a 2048² sqrtm on the
+# host is no part of the merge), the losses' relative tolerance of two ranks
+# against one process by step, and the runs' time limit.
+DP_WORLD, DP_EVAL, DP_FID_DIM = 2, 64, 64
+DP_LOSS_TOL = {1: 1e-4, 3: 1e-3}
+DP_TIMEOUT = 300.0
 
 
 def log(msg: str) -> None:
@@ -1701,13 +1726,13 @@ print("served batches", sorted(out), "with torch alone")
 """
 
 
-def run_processes(jobs, workdir, timeout=900.0):
+def run_processes(jobs, workdir, timeout=900.0, what="phase 14"):
     """Run each job, ``name: (python arguments, working directory, the job it
     waits for or None)``, in a process of its own with its output in
     ``workdir/<name>.log``: those that wait for none at once, each other one
     when the job it waits for has exited with 0. Returns {name: (exit code,
     or None if it never started; output; seconds)}. Every process has ended
-    when it returns."""
+    when it returns; ``what`` names the caller in the timeout's error."""
     procs, done = {}, {}
 
     def start(name):
@@ -1723,7 +1748,7 @@ def run_processes(jobs, workdir, timeout=900.0):
         deadline = time.perf_counter() + timeout
         while len(done) < len(jobs):
             if time.perf_counter() > deadline:
-                raise RuntimeError(f"phase 14: {sorted(set(jobs) - set(done))} not done "
+                raise RuntimeError(f"{what}: {sorted(set(jobs) - set(done))} not done "
                                    f"after {timeout:.0f} s")
             for name, (p, f, t0) in list(procs.items()):
                 if name in done or p.poll() is None:
@@ -2307,6 +2332,352 @@ def run_folder(blur_cuda, synthetic, workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: data parallelism
+# ---------------------------------------------------------------------------
+
+
+class ConcatShards:
+    """A dataset whose batch of B is its ``n`` shards' batches of B / n
+    concatenated in shard order: what ``n`` data-parallel processes hold
+    together, so one process can train on the global batches they do."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, n
+        self.name = f"{dataset.name}:concat{n}"
+
+    @property
+    def num_examples(self):
+        return self.dataset.num_examples
+
+    @property
+    def image_shape(self):
+        return self.dataset.image_shape
+
+    def batches(self, batch_size, *, seed=0, start_epoch=0, start_batch=0, shard_index=0,
+                shard_count=1):
+        if shard_count != 1:
+            raise ValueError("ConcatShards is the whole of its shards")
+        streams = [self.dataset.batches(batch_size // self.n, seed=seed,
+                                        start_epoch=start_epoch, start_batch=start_batch,
+                                        shard_index=r, shard_count=self.n)
+                   for r in range(self.n)]
+        for parts in zip(*streams):
+            yield np.concatenate(parts)
+
+
+class PairRecorder:
+    """A metric for ``Trainer.evaluate`` that keeps the (reals, fakes) pairs
+    it is fed, on the host; it has no cross-process merge."""
+
+    name = "pairs"
+
+    def __init__(self):
+        self.reals, self.fakes = [], []
+
+    def update_state(self, reals, fakes):
+        self.reals.append(reals.cpu().numpy())
+        self.fakes.append(fakes.cpu().numpy())
+
+    def result(self):
+        return float(sum(len(r) for r in self.reals))
+
+    def reset_states(self):
+        pass
+
+
+def dp_worker(cfg: dict) -> None:
+    """One process of a phase 16 run (``chip_smoke.py --dp_worker <json>``,
+    alone or under ``torch.distributed.run``): ``fit`` at the smoke
+    configuration with the local batch, backend and device of ``cfg``,
+    deterministic cuDNN, the kernel's launches per step and their plane
+    counts; then, as ``cfg`` asks, ``evaluate`` (SWD and random-conv FID
+    merged, the pairs kept) and a resume. Writes its results as JSON."""
+    import torch.distributed as dist
+
+    from blurred_gan_tpu_torch import parallel
+    from blurred_gan_tpu_torch.entry import shutdown
+    from blurred_gan_tpu_torch.metrics.fid import FIDMetric
+    from blurred_gan_tpu_torch.metrics.swd import SWDMetric
+    from blurred_gan_tpu_torch.ops import blur_cuda
+    from blurred_gan_tpu_torch.runtime import process_index
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    torch.backends.cudnn.deterministic = True
+    if cfg.get("group"):
+        # torch.distributed.run sets WORLD_SIZE=1 for one process, which asks
+        # for no group; the JAX package's trigger asks for a group of one.
+        os.environ["BLURRED_GAN_MULTIHOST"] = "1"
+    flags = dict(batch_size=cfg["batch"], device=cfg["device"], sample_grid_every=0,
+                 checkpoint_every=0, save_image_summaries_interval=0)
+    if cfg.get("backend"):
+        flags["dist_backend"] = cfg["backend"]
+    args = smoke_args(cfg["log_dir"], **flags)
+    trainer, total = build_trainer(args, feeders=[])
+    if cfg.get("concat"):
+        trainer.dataset = ConcatShards(trainer.dataset, cfg["concat"])
+    per_step = count_step_launches(blur_cuda, trainer)
+    planes, launch = [], blur_cuda._launch
+
+    def recording_launch(x, t_h, t_w):
+        planes.append(int(x.shape[0]))
+        return launch(x, t_h, t_w)
+
+    blur_cuda._launch = recording_launch
+    # The gradients' all-reduce of each step, timed between synchronisations.
+    reduce_s, all_reduce_grads = [], parallel.all_reduce_grads
+
+    def timed_all_reduce(grads):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = all_reduce_grads(grads)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t)
+        return out
+
+    parallel.all_reduce_grads = timed_all_reduce
+    t0 = time.perf_counter()
+    trainer.fit(total_examples=total, max_steps=STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    blur_cuda._launch, parallel.all_reduce_grads = launch, all_reduce_grads
+    history = list(trainer.history)
+    rank = process_index()
+    out = {"rank": rank, "world": trainer.world, "device": str(trainer.device),
+           "backend": dist.get_backend() if dist.is_initialized() else None,
+           "per_step": per_step, "planes": sorted(set(planes)), "fit_s": seconds,
+           "history": [{k: v for k, v in h.items() if k != "images_per_sec"} for h in history],
+           "img_s": statistics.median(h["images_per_sec"] for h in history[2:]),
+           "digest": parallel.state_digest(trainer.state),
+           # critic's and generator's all-reduces summed per step, steps 3 on
+           "all_reduce_ms": 1e3 * statistics.median(
+               a + b for a, b in zip(reduce_s[4::2], reduce_s[5::2]))}
+    if cfg.get("eval"):
+        pairs = PairRecorder()
+        out["eval"] = trainer.evaluate(num_samples=DP_EVAL, metrics=[
+            SWDMetric(), FIDMetric(feature_dim=DP_FID_DIM), pairs])
+        np.savez(os.path.join(cfg["out"], f"{cfg['name']}_pairs{rank}.npz"),
+                 reals=np.concatenate(pairs.reals),
+                 fakes=np.concatenate(pairs.fakes))
+    if cfg.get("resume"):
+        again, _ = build_trainer(args, feeders=[])
+        out["resume"] = {"restored": again.restored_examples,
+                         "digest": parallel.state_digest(again.state)}
+    with open(os.path.join(cfg["out"], f"{cfg['name']}{rank}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown()
+
+
+def nccl_probe() -> None:
+    """Two ranks of an NCCL group on ``cuda:0`` (``torch.distributed.run``):
+    one all-reduce, whose error is the point."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://",
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.ones(4, device="cuda:0")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"[nccl probe] rank {dist.get_rank()}: all_reduce gave {x.tolist()}", flush=True)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(n: int, *args) -> list:
+    """``python -m torch.distributed.run`` arguments for ``n`` processes of
+    this script."""
+    return ["-m", "torch.distributed.run", "--nproc_per_node", str(n), "--master_port",
+            str(free_port()), os.path.abspath(__file__), *args]
+
+
+def worker_job(cfg: dict, n: int = 0) -> list:
+    """The python arguments of a ``dp_worker`` run: under ``torchrun`` with
+    ``n`` processes, or alone (``n`` = 0: no group)."""
+    argv = ["--dp_worker", json.dumps(cfg)]
+    return torchrun(n, *argv) if n else [os.path.abspath(__file__), *argv]
+
+
+def loss_diffs(want, got, steps=(1, 3, 10)):
+    """{step: largest relative difference of the four losses} at ``steps``."""
+    keys = ("disc_loss", "gen_loss", "gp_term", "wgan_loss")
+    return {n: max(abs(got[n - 1][k] - want[n - 1][k]) / max(abs(want[n - 1][k]), 1e-12)
+                   for k in keys) for n in steps}
+
+
+def merged_reference(pair_files, device):
+    """SWD and random-conv FID of one process over the ranks' pairs: one FID
+    fed every pair in rank order, and each rank's SWD banks (its own patch
+    stream, as that rank drew) merged in rank order."""
+    from blurred_gan_tpu_torch.metrics.fid import FIDMetric
+    from blurred_gan_tpu_torch.metrics.swd import SWDMetric
+
+    fid, swds = FIDMetric(feature_dim=DP_FID_DIM), []
+    local_bs = BATCH // len(pair_files)
+    for path in pair_files:
+        with np.load(path) as z:
+            reals, fakes = torch.from_numpy(z["reals"]).to(device), torch.from_numpy(
+                z["fakes"]).to(device)
+        swd = SWDMetric()
+        for i in range(0, reals.shape[0], local_bs):
+            fid.update_state(reals[i:i + local_bs], fakes[i:i + local_bs])
+            swd.update_state(reals[i:i + local_bs], fakes[i:i + local_bs])
+        swds.append(swd)
+    banks = [torch.cat(d).cpu().numpy() for s in swds[1:]
+             for bank in (s.real_descriptors, s.fake_descriptors) for d in bank]
+    swds[0].cross_process_merge(lambda x: [np.asarray(x), banks.pop(0)])
+    return {"FID": fid.result(), **swds[0].results()}
+
+
+def check_ranks(tag, name, read, out_dir, concat, local_planes, device, what):
+    """Phase 16's checks of a two-rank run ``name`` against one process on
+    the ranks' concatenated reals: 6 launches a rank-step at the local
+    planes, the ranks equal, the losses at ``DP_LOSS_TOL``, the resume bit
+    for bit, ``evaluate``'s merged scores equal on the ranks and to one
+    process over the same pairs. Returns (ranks, loss diffs, merged scores,
+    one process's scores)."""
+    ranks = [read(name, r) for r in range(DP_WORLD)]
+    for r, got in enumerate(ranks):
+        if got["per_step"] != [6] * STEPS or got["planes"] != local_planes:
+            raise RuntimeError(f"phase 16 {tag} rank {r}: launches per step {got['per_step']}, "
+                               f"planes {got['planes']}, want 6 a step at {local_planes}")
+        if got["history"] != ranks[0]["history"] or got["digest"] != ranks[0]["digest"]:
+            raise RuntimeError(f"phase 16 {tag}: rank {r} differs from rank 0")
+        if got["resume"]["restored"] != STEPS * BATCH or got["resume"]["digest"] != got["digest"]:
+            raise RuntimeError(f"phase 16 {tag} rank {r}: resume {got['resume']} against the "
+                               f"live state {got['digest']}")
+    diffs = loss_diffs(concat["history"], ranks[0]["history"])
+    log(f"[dp] {tag} {what} against one process at b{BATCH} on their concatenated reals, "
+        f"same weights and draws: largest relative difference of the losses at steps 1, 3, "
+        f"10: {', '.join(f'{d:.2e}' for d in diffs.values())}")
+    for step, tol in DP_LOSS_TOL.items():
+        want, got = concat["history"][step - 1], ranks[0]["history"][step - 1]
+        for k in ("disc_loss", "gen_loss", "gp_term", "wgan_loss"):
+            if not math.isclose(got[k], want[k], rel_tol=tol, abs_tol=tol * 1e-2):
+                raise RuntimeError(f"phase 16 {tag}, step {step}: {k} {got[k]!r} vs one "
+                                   f"process {want[k]!r} (rtol {tol})")
+    evaluated = ranks[0]["eval"]
+    if any(g["eval"] != evaluated for g in ranks) or evaluated["pairs"] != float(DP_EVAL):
+        raise RuntimeError(f"phase 16 {tag}: the ranks' scores {[g['eval'] for g in ranks]}")
+    want = merged_reference([os.path.join(out_dir, f"{name}_pairs{r}.npz")
+                             for r in range(DP_WORLD)], device)
+    for k in ("FID", "SWDx1e3_avg"):
+        if not math.isclose(evaluated[k], want[k], rel_tol=METRIC_TOL["rtol"],
+                            abs_tol=METRIC_TOL["atol"]):
+            raise RuntimeError(f"phase 16 {tag}: merged {k} {evaluated[k]} vs one process over "
+                               f"the same pairs {want[k]}")
+    log(f"[dp] {tag} evaluate over {DP_EVAL} pairs a rank, merged: SWDx1e3_avg "
+        f"{evaluated['SWDx1e3_avg']:.4f} (one process over the same pairs "
+        f"{want['SWDx1e3_avg']:.4f}), random-conv FID ({DP_FID_DIM} features) "
+        f"{evaluated['FID']:.4f} ({want['FID']:.4f}); the recorder without a merge logged as "
+        f"eval_localshard_pairs; a 2-rank checkpoint restored bit for bit on both ranks; "
+        f"blur launches 6 a step on each rank at {local_planes} planes")
+    return ranks, diffs, evaluated, want
+
+
+def run_data_parallel(blur_cuda, blur_matrix, device, workdir, slice_history, card):
+    """Phase 16: the data-parallel path (``runtime``, ``parallel``, the
+    step's and the Trainer's multi-process paths) on this card."""
+    out_dir = os.path.join(workdir, "dp")
+    os.makedirs(out_dir)
+
+    def cfg(name, batch, **kw):
+        return dict(name=name, batch=batch, out=out_dir, log_dir=os.path.join(out_dir, name),
+                    **kw)
+
+    jobs = {
+        # (a) a group of one over NCCL, and no group, at the smoke batch.
+        "nogroup": (worker_job(cfg("nogroup", BATCH, device="cuda:0")), HERE, None),
+        "one": (worker_job(cfg("one", BATCH, device="cuda", group=True), 1), HERE, None),
+        # (b) one process on the two ranks' concatenated reals, then the two
+        # ranks on the one card over gloo.
+        "concat": (worker_job(cfg("concat", BATCH, device="cuda:0", concat=DP_WORLD)), HERE,
+                   "one"),
+        "gloo": (worker_job(cfg("gloo", BATCH // DP_WORLD, device="cuda:0", backend="gloo",
+                                eval=True, resume=True), DP_WORLD), HERE, "concat"),
+        # NCCL refuses two ranks on one device (a probe that must fail).
+        "nccl_one_card": (torchrun(DP_WORLD, "--nccl_probe"), HERE, "gloo"),
+    }
+    two_cards = torch.cuda.device_count() >= DP_WORLD
+    if two_cards:  # (c) NCCL across two cards
+        jobs["nccl"] = (worker_job(cfg("nccl", BATCH // DP_WORLD, device="cuda", eval=True,
+                                       resume=True), DP_WORLD), HERE, "gloo")
+    results = run_processes(jobs, out_dir, timeout=DP_TIMEOUT, what="phase 16")
+    for name, (rc, output, seconds) in results.items():
+        log(f"[dp] {name}: exit {rc} in {seconds:.1f} s")
+        if name != "nccl_one_card" and rc != 0:
+            raise RuntimeError(f"phase 16 {name} exited {rc}:\n{output[-4000:]}")
+
+    def read(name, rank=0):
+        with open(os.path.join(out_dir, f"{name}{rank}.json")) as f:
+            return json.load(f)
+
+    # (a) the group of one is the plain path, to the bit.
+    nogroup, one = read("nogroup"), read("one")
+    if (one["world"], one["backend"], nogroup["world"], nogroup["backend"]) != (1, "nccl", 1, None):
+        raise RuntimeError(f"phase 16 (a): a group of {one['world']} over {one['backend']}, "
+                           f"no group: {nogroup['world']}, {nogroup['backend']}")
+    if one["history"] != nogroup["history"] or one["digest"] != nogroup["digest"]:
+        raise RuntimeError(f"phase 16 (a): a group of one differs from no group: "
+                           f"{relative_diffs(nogroup['history'], one['history'])}")
+    if not losses_close(slice_history[0], one["history"][0]):
+        raise RuntimeError(f"phase 16 (a), step 1: {one['history'][0]} vs phase 4 "
+                           f"{slice_history[0]}")
+    log(f"[dp] (a) torch.distributed.run --nproc_per_node 1 over NCCL, {STEPS} steps of fit at "
+        f"b{BATCH}, deterministic cuDNN: losses and state bit-equal to a run without a group "
+        f"(state digest {one['digest'][:16]}); against phase 4 (default cuDNN) "
+        f"{' '.join(f'{d:.1e}' for d in relative_diffs(slice_history, one['history']))}")
+
+    # (b) two ranks sharing the card over gloo against one process.
+    concat = read("concat")
+    local_planes = sorted({3 * BATCH // DP_WORLD, 6 * BATCH // DP_WORLD})
+    ranks, diffs, evaluated, want = check_ranks(
+        "(b)", "gloo", read, out_dir, concat, local_planes, device,
+        f"2 ranks at b{BATCH // DP_WORLD} on cuda:0 over gloo")
+    log(f"[dp] (b) img/s: 2 processes sharing one card through gloo, not a DP speed: "
+        f"{ranks[0]['img_s']:.1f} global img/s ({ranks[0]['fit_s']:.1f} s for {STEPS} steps; "
+        f"the gradients' all-reduce {ranks[0]['all_reduce_ms']:.1f} ms a step, median of steps "
+        f"3-{STEPS}, between synchronisations); "
+        f"one process at b{BATCH}: {concat['img_s']:.1f} img/s ({concat['fit_s']:.1f} s) on {card}")
+    timings = [time_blur(blur_cuda, blur_matrix, device, planes, SIGMA0, card)
+               for planes in reversed(local_planes)]
+
+    rc, output, _ = results["nccl_one_card"]
+    said = [ln for ln in output.splitlines() if "uplicate" in ln or "Error" in ln][:3]
+    log(f"[dp] NCCL with two ranks on cuda:0: exit {rc}; it says: "
+        + (" | ".join(ln.strip()[:300] for ln in said) or output.strip()[-600:]))
+    nccl = None
+    if two_cards:
+        nccl, ndiffs, _, _ = check_ranks("(c)", "nccl", read, out_dir, concat, local_planes,
+                                         device, f"2 ranks at b{BATCH // DP_WORLD} on cuda:0 "
+                                         f"and cuda:1 over NCCL")
+        log(f"[dp] (c) NCCL across two cards: {nccl[0]['img_s']:.1f} global img/s against one "
+            f"process's {concat['img_s']:.1f} at b{BATCH} (the gradients' all-reduce "
+            f"{nccl[0]['all_reduce_ms']:.1f} ms a step) on {card} x{torch.cuda.device_count()}")
+    else:
+        log(f"[dp] (c) NCCL across two cards: not run, this machine has "
+            f"{torch.cuda.device_count()} card")
+    non_jax_check()
+    return {"world": DP_WORLD, "backend": "gloo on one card", "loss_rel_diffs": diffs,
+            "launches_per_rank_step": ranks[0]["per_step"][0], "planes": local_planes,
+            "group_of_one_bit_equal": True, "eval": evaluated, "eval_one_process": want,
+            "img_s_two_processes": ranks[0]["img_s"], "img_s_one_process": concat["img_s"],
+            "all_reduce_ms": ranks[0]["all_reduce_ms"],
+            "blur": timings, "nccl_one_card_rc": rc,
+            "nccl_two_cards": None if nccl is None else {
+                "loss_rel_diffs": ndiffs, "img_s": nccl[0]["img_s"],
+                "all_reduce_ms": nccl[0]["all_reduce_ms"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
@@ -2378,6 +2749,8 @@ def main():
                                   workdir, card)
         with phase("15 image folder"):
             folder = run_folder(blur_cuda, trainer.dataset, workdir, card)
+        with phase("16 data parallelism"):
+            parallel = run_data_parallel(blur_cuda, blur_matrix, device, workdir, history, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -2390,12 +2763,42 @@ def main():
         # The library call is the plain version itself: two cuBLAS matmuls.
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
         "planes": headline["planes"], "cases": timings + mnist_timings,
-        "variants": variants, "bf16": bf16, "serving": serving, "folder": folder}]}),
+        "variants": variants, "bf16": bf16, "serving": serving, "folder": folder,
+        "parallel": parallel}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def data_parallel_only():
+    """``chip_smoke.py --data_parallel``: the build, phase 4 and phase 16
+    alone, for a machine with two cards or more, where phase 16 runs (c)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch finds no CUDA device")
+    card = card_line()
+    log(f"{card} x{torch.cuda.device_count()}")
+    from blurred_gan_tpu_torch.entry import set_float32_precision
+    from blurred_gan_tpu_torch.ops import blur_cuda
+    from blurred_gan_tpu_torch.ops.blur import blur_matrix
+
+    set_float32_precision()
+    blur_cuda.build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        with phase("4 slice"):
+            _, history, _, _ = run_slice(blur_cuda, workdir)
+        with phase("16 data parallelism"):
+            parallel = run_data_parallel(blur_cuda, blur_matrix, torch.device("cuda:0"),
+                                         workdir, history, card)
+    print(json.dumps({"parallel": parallel}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp_worker"]:
+        dp_worker(json.loads(sys.argv[2]))
+    elif sys.argv[1:] == ["--nccl_probe"]:
+        nccl_probe()
+    elif sys.argv[1:] == ["--data_parallel"]:
+        data_parallel_only()
+    else:
+        main()

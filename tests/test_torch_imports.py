@@ -37,6 +37,8 @@ assert {"blurred_gan_tpu_torch.metrics.fid", "blurred_gan_tpu_torch.metrics.swd"
         "blurred_gan_tpu_torch.tools.score", "blurred_gan_tpu_torch.metrics.kid",
         "blurred_gan_tpu_torch.metrics.prdc", "blurred_gan_tpu_torch.utils.profiling",
         "blurred_gan_tpu_torch.native", "blurred_gan_tpu_torch.tools.make_shards",
+        "blurred_gan_tpu_torch.runtime", "blurred_gan_tpu_torch.parallel",
+        "blurred_gan_tpu_torch.dryrun",
         } <= set(names), names
 import blurred_gan_tpu_torch.utils.logging as logging_mod
 logging_mod._summary_writer = lambda log_dir: None

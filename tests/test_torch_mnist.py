@@ -207,7 +207,8 @@ def jax_dataclass_flags() -> set:
 def test_flags_equal_the_root_scripts(module, script, left_out):
     want = (script_flags(REPO / script) | jax_dataclass_flags()) - left_out
     assert "--device_resident" in want and "--chunk_steps" in want
-    assert parser_flags(module.build_parser()) == want | {"--device"}
+    # The port's own: --device, and --dist_backend (the data-parallel group's backend).
+    assert parser_flags(module.build_parser()) == want | {"--device", "--dist_backend"}
 
 
 @pytest.mark.parametrize("module", [train_mnist, train_celeba])
