@@ -8,10 +8,11 @@ stream at the exact batch by index arithmetic alone, and the stream is
 byte-equal to the JAX package's for the same dataset and seed, whatever the
 storage: an image folder, its materialized array or its shard store.
 
-Copied: ``ArrayDataset``, ``synthetic_dataset``, ``ImageFolderDataset`` (a
-folder of JPEG / PNG files decoded per batch on the pipeline's worker by the
-native loader, ``blurred_gan_tpu_torch/native``, or by Pillow where that does
-not build), the ``shard-*.npy`` store (``ShardedArrayDataset``,
+Copied: ``ArrayDataset``, ``synthetic_dataset`` (its images rendered by
+``synthetic_images``, which renders any subset of them alone),
+``ImageFolderDataset`` (a folder of JPEG / PNG files decoded per batch on the
+pipeline's worker by the native loader, ``blurred_gan_tpu_torch/native``, or
+by Pillow where that does not build), the ``shard-*.npy`` store (``ShardedArrayDataset``,
 ``write_shards``), ``materialize`` for the device-resident mode,
 ``DataPipeline``, ``load_mnist`` and ``load_celeba``, with the
 multi-process sharding options: ``shard_index`` / ``shard_count`` give each
@@ -95,24 +96,41 @@ def synthetic_dataset(image_shape: Tuple[int, int, int] = (28, 28, 1),
     phase, plus a plane wave), with structure at several scales so the blur
     schedule has something to act on."""
     h, w, c = image_shape
-    rng = np.random.RandomState(seed)
+    return ArrayDataset(synthetic_images(image_shape, range(num_examples), seed),
+                        name=f"synthetic{h}x{w}x{c}")
+
+
+def synthetic_images(image_shape: Tuple[int, int, int], indices: Sequence[int],
+                     seed: int = 0) -> np.ndarray:
+    """The images at ``indices`` (in that order) of every
+    ``synthetic_dataset(image_shape, n, seed)`` with ``n`` above them, as a
+    uint8 NHWC array. Each image's random numbers are drawn in the order the
+    dataset draws them, but only these images are rendered."""
+    h, w, c = image_shape
+    indices = np.asarray(indices, np.int64)
+    per_image = 15 + (c if c > 1 else 0)  # 3 blobs of 4, the wave's 3, the gains
+    draws = np.random.RandomState(seed).rand(int(indices.max(initial=-1)) + 1, per_image)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     yy, xx = yy / h, xx / w
-    out = np.empty((num_examples, h, w, c), np.uint8)
-    for i in range(num_examples):
+    out = np.empty((len(indices), h, w, c), np.uint8)
+    for j, i in enumerate(indices):
+        # The scalars keep the types of the draws they stand for: numpy
+        # float64 where the dataset unpacks an array (rand(2), rand(3)), a
+        # Python float where it calls rand(), so the arithmetic promotes alike.
+        u = draws[i]
         img = np.zeros((h, w), np.float32)
-        for _ in range(3):
-            cy, cx = rng.rand(2)
-            s = 0.03 + 0.12 * rng.rand()
-            a = 0.4 + 0.6 * rng.rand()
+        for b in range(0, 12, 4):
+            cy, cx = u[b], u[b + 1]
+            s = 0.03 + 0.12 * float(u[b + 2])
+            a = 0.4 + 0.6 * float(u[b + 3])
             img += a * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
-        fy, fx, ph = rng.rand(3)
+        fy, fx, ph = u[12], u[13], u[14]
         img += 0.2 * np.sin(2 * np.pi * (3 * fy * yy + 3 * fx * xx + ph))
         img = (img - img.min()) / (np.ptp(img) + 1e-6)
         for ch in range(c):
-            gain = 1.0 if c == 1 else 0.6 + 0.4 * rng.rand()
-            out[i, :, :, ch] = np.uint8(np.clip(img * gain * 255, 0, 255))
-    return ArrayDataset(out, name=f"synthetic{h}x{w}x{c}")
+            gain = 1.0 if c == 1 else 0.6 + 0.4 * float(u[15 + ch])
+            out[j, :, :, ch] = np.uint8(np.clip(img * gain * 255, 0, 255))
+    return out
 
 
 class ShardedArrayDataset:

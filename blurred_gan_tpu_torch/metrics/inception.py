@@ -142,7 +142,9 @@ def load_inception_weights(path: str, device=None) -> Params:
                 if key not in data:
                     raise KeyError(f"{path} is missing '{key}' - not an InceptionV3 "
                                    f"weights file in this module's npz layout")
-                arr = np.asarray(data[key], np.float32)
+                # C order whatever order the file keeps, so that weights saved
+                # again are laid out as the JAX package writes them.
+                arr = np.ascontiguousarray(data[key], np.float32)
                 if arr.shape != shape:
                     raise ValueError(f"{key}: expected shape {shape}, got {arr.shape}")
                 unit[field] = arr

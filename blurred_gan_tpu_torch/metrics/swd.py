@@ -20,7 +20,7 @@ pinned: the functions take positions and directions explicitly, and
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,6 +84,26 @@ def laplacian_pyramid(images: torch.Tensor, num_levels: int) -> List[torch.Tenso
         pyramid[-1] = pyramid[-1] - pyr_up(down)
         pyramid.append(down)
     return pyramid
+
+
+def reconstruct_laplacian_pyramid(pyramid: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Inverse of :func:`laplacian_pyramid`."""
+    x = pyramid[-1]
+    for level in pyramid[-2::-1]:
+        x = pyr_up(x) + level
+    return x
+
+
+def downscale_minibatch(images: torch.Tensor, lod: int) -> torch.Tensor:
+    """Average-pool 2× per level of detail (NCHW, float32 out; ``lod`` 0
+    returns ``images`` as they are)."""
+    if lod == 0:
+        return images
+    x = images.to(torch.float32)
+    for _ in range(lod):
+        x = (x[:, :, 0::2, 0::2] + x[:, :, 0::2, 1::2]
+             + x[:, :, 1::2, 0::2] + x[:, :, 1::2, 1::2]) * 0.25
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,12 @@ def appropriate_std(kernel_size):
     return (kernel_size - 1.0) / 6.0
 
 
+def maximum_reasonable_std(image_resolution: int) -> float:
+    """Largest σ worth using at a resolution: the σ that fills a kernel of
+    ``image_resolution - 1`` taps."""
+    return float(image_resolution - 1 - 1) / 6.0
+
+
 def max_taps(resolution: int) -> int:
     """Static tap-buffer size: the largest odd tap count the policy can produce."""
     return 2 * (resolution // 2) + 1

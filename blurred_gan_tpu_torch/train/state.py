@@ -171,3 +171,11 @@ def create_train_state(gan: GAN, hparams, *, device, seed: int = 0) -> TrainStat
         rng=torch.Generator(device=device),
         g_ema=([p.detach().clone() for p in gan.generator.parameters()] if use_ema else None),
     )
+
+
+def count_params(tree) -> int:
+    """Elements of a module's parameters, or of every tensor of a mapping
+    (a state dict)."""
+    if isinstance(tree, nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    return sum(t.numel() for t in tree.values())

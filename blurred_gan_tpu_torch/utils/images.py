@@ -1,5 +1,5 @@
-"""Image utilities: normalisation, sample grids and a PNG writer (port of
-``blurred_gan_tpu/utils/images.py``).
+"""Image utilities: normalisation, layout transposes, sample grids and a PNG
+writer (port of ``blurred_gan_tpu/utils/images.py``).
 
 ``samples_grid`` is a copy of the JAX package's numpy function, so a grid of
 the same samples is byte-equal. PNGs are written with the standard library
@@ -12,6 +12,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> grey, RGB, RGBA
@@ -20,6 +21,20 @@ _PNG_COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> grey, RGB, RGBA
 def normalize_images(images):
     """[-1, 1] -> [0, 1] (numpy arrays or tensors)."""
     return (images + 1.0) / 2.0
+
+
+def NHWC_to_NCHW(images):
+    """(N, H, W, C) -> (N, C, H, W): a view of a tensor, else a numpy array."""
+    if isinstance(images, torch.Tensor):
+        return images.permute(0, 3, 1, 2)
+    return np.transpose(np.asarray(images), (0, 3, 1, 2))
+
+
+def NCHW_to_NHWC(images):
+    """(N, C, H, W) -> (N, H, W, C): a view of a tensor, else a numpy array."""
+    if isinstance(images, torch.Tensor):
+        return images.permute(0, 2, 3, 1)
+    return np.transpose(np.asarray(images), (0, 2, 3, 1))
 
 
 def samples_grid(samples, grid=(8, 8), pad: int = 2) -> np.ndarray:

@@ -76,6 +76,7 @@ Phases, each of which raises on failure:
     graphs, then from graphs captured anew with cuDNN's default algorithms;
     the caching
     allocator's bytes before and after those captures; ``fit``'s peak memory;
+    the bytes still allocated once each configuration's trainers are dropped;
     for accumulation one step with the kernel against one with the plain blur;
     for the default and EMA the chunked images/s with the adaptive
     controller's stop gate;
@@ -133,6 +134,18 @@ Phases, each of which raises on failure:
     gradients' all-reduce ms, and the kernel timed at 96 and 48 planes; what
     NCCL says to two ranks on one card; (c) with two cards or more, (b) over
     NCCL across two cards, else a line saying it was not run;
+17. the diagnostic tools on what phase 7 left: (a) ``diagnose_samples.main``
+    with ``--config celeba128 --sigma 5`` on 1000 samples of phase 7's
+    generator, once through the kernel and once through the plain blur: 20
+    kernel launches (10 chunks of 100 reals, 10 of the set) and none, the
+    rows equal and the blurred objective within ``DIAG_TOL``, each run's
+    seconds and its blur's, SWD's and FID's; the kernel timed at the
+    objective's 300 planes; (b) ``bn_stats_ab.main`` on phase 7's run
+    directory: the generator's buffers' digest the same before and after
+    each pass, the running pass equal to the eval-mode generator; (c)
+    ``convert_inception`` on a torchvision state dict made from
+    ``random_inception_params``, its npz loaded on the card giving the source
+    parameters' features;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -242,6 +255,14 @@ NATIVE_VS_PIL = dict(mean=1.5, p99=3)
 DP_WORLD, DP_EVAL, DP_FID_DIM = 2, 64, 64
 DP_LOSS_TOL = {1: 1e-4, 3: 1e-3}
 DP_TIMEOUT = 300.0
+# Phase 17: the samples diagnosed and the σ of the blurred objective (the
+# run's σ₀); the tool's chunk, so the blur launches the objective implies;
+# its rows, kernel against plain blur: SWD and FID within rtol 1e-3 and one
+# unit of the rows' 2-place rounding; the Inception trunk's inputs and
+# tolerance (tests/test_torch_metrics.py's) for the converted weights.
+DIAG_SAMPLES, DIAG_SIGMA, DIAG_CHUNK = 1000, SIGMA0, 100
+DIAG_TOL = dict(rel_tol=1e-3, abs_tol=0.01)
+DIAG_INCEPTION_BATCH, DIAG_INCEPTION_TOL = 8, dict(rtol=1e-4, atol=1e-4)
 
 
 def log(msg: str) -> None:
@@ -1397,6 +1418,12 @@ def run_variants(blur_cuda, dataset, workdir, card):
         records.append(run_variant(blur_cuda, template, dataset, workdir, name, flags, card))
         gc.collect()
         torch.cuda.empty_cache()
+        # What stays allocated once the configuration's trainers are gone
+        # (flat from one configuration to the next since the runners share
+        # one capture stream, train/fast.py).
+        records[-1]["allocated_after_bytes"] = torch.cuda.memory_allocated()
+        log(f"[variants] {name}: {records[-1]['allocated_after_bytes'] / 2**20:.1f} MiB "
+            f"allocated once its trainers were dropped on {card}")
     by_name = {r["name"]: r for r in records}
     for name in ("default", "ema"):
         flags = dict(VARIANTS)[name]
@@ -2584,6 +2611,190 @@ def check_ranks(tag, name, read, out_dir, concat, local_planes, device, what):
     return ranks, diffs, evaluated, want
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the diagnostic tools
+# ---------------------------------------------------------------------------
+
+
+def buffers_digest(module) -> str:
+    """SHA-256 of a module's buffers (BatchNorm's running statistics)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in module.named_buffers():
+        h.update(name.encode() + t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_diagnose(blur_cuda, state, gan, workdir, card):
+    """Phase 17 (a): ``diagnose_samples --sigma`` on 1000 samples of phase
+    7's generator, once through the kernel and once through the plain blur.
+    Returns the runs' records."""
+    import numpy as np
+
+    from blurred_gan_tpu_torch.tools import bn_stats_ab, diagnose_samples
+    from blurred_gan_tpu_torch.train.step import make_sample_fn
+
+    set_dir = os.path.join(workdir, "diagnose")
+    os.makedirs(set_dir, exist_ok=True)
+    latents = torch.from_numpy(bn_stats_ab.eval_latents()[:DIAG_SAMPLES]).to("cuda")
+    sample = make_sample_fn(gan)
+    fakes = torch.cat([sample(state, latents[i:i + DIAG_CHUNK])
+                       for i in range(0, DIAG_SAMPLES, DIAG_CHUNK)])
+    np.savez(os.path.join(set_dir, "ours_samples_s0.npz"),
+             samples=fakes.permute(0, 2, 3, 1).cpu().numpy())
+    argv = ["--dir", set_dir, "--config", f"celeba{RES}", "--seeds", "0", "--sides", "ours",
+            "--sigma", str(DIAG_SIGMA), "--device", "cuda"]
+    runs = {}
+    for name, impl in (("kernel", "auto"), ("plain", "torch")):
+        timings = {}
+        torch.cuda.synchronize()
+        blur_cuda.launch_count = 0
+        t0 = time.perf_counter()
+        rows = diagnose_samples.main(argv, blur_impl=impl, timings=timings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = blur_cuda.launch_count
+        parts = {k: sum(t.get(k, 0.0) for t in timings.values())
+                 for k in ("blur_s", "swd_s", "fid_s")}
+        runs[name] = {"rows": rows, "launches": launches, "seconds": seconds, **parts}
+        log(f"[diagnose] diagnose_samples --config celeba{RES} --sigma {DIAG_SIGMA} on "
+            f"{DIAG_SAMPLES} samples, {name} blur: {seconds:.1f} s, of which blur "
+            f"{parts['blur_s']:.3f} s, SWD {parts['swd_s']:.2f} s, FID {parts['fid_s']:.2f} s; "
+            f"{launches} kernel launches; {json.dumps(rows[-1])} on {card}")
+    # 10 chunks of 100 for the reals and 10 for the set, one launch each.
+    want = 2 * DIAG_SAMPLES // DIAG_CHUNK
+    if runs["kernel"]["launches"] != want or runs["plain"]["launches"] != 0:
+        raise RuntimeError(f"phase 17: blur launches {runs['kernel']['launches']} with the "
+                           f"kernel (want {want}), {runs['plain']['launches']} with the plain "
+                           f"blur (want 0)")
+    # Pixel statistics and bands equal; the objective within DIAG_TOL.
+    kernel, plain = ([{k: v for k, v in r.items() if k != "blurred_objective"}
+                      for r in runs[name]["rows"]] for name in ("kernel", "plain"))
+    objective = runs["kernel"]["rows"][-1]["blurred_objective"]
+    plain_objective = runs["plain"]["rows"][-1]["blurred_objective"]
+    if kernel != plain or list(objective) != list(plain_objective) or not all(
+            math.isclose(objective[k], v, **DIAG_TOL) for k, v in plain_objective.items()):
+        raise RuntimeError(f"phase 17: the kernel's rows {runs['kernel']['rows']} against "
+                           f"the plain blur's {runs['plain']['rows']}")
+    if not all(math.isfinite(v) for v in objective.values()):
+        raise RuntimeError(f"phase 17: blurred objective {objective}")
+    return runs
+
+
+def run_bn_ab(state, gan, run_dir, workdir, card):
+    """Phase 17 (b): ``bn_stats_ab`` on phase 7's run directory; the batch
+    pass leaves the restored generator's buffers as they were, and the
+    running pass equals the eval-mode generator. Returns its record."""
+    import numpy as np
+
+    from blurred_gan_tpu_torch.tools import bn_stats_ab
+    from blurred_gan_tpu_torch.train.step import make_sample_fn
+
+    digests = []
+    sample = bn_stats_ab.sample
+
+    def recorded(generator, *args, **kwargs):
+        before = buffers_digest(generator)
+        out = sample(generator, *args, **kwargs)
+        digests.append((before, buffers_digest(generator)))
+        return out
+
+    out_dir = os.path.join(workdir, "bn_ab")
+    bn_stats_ab.sample = recorded
+    try:
+        t0 = time.perf_counter()
+        rows = bn_stats_ab.main(["--log_dir", run_dir, "--corpus_n", str(NUM_EXAMPLES),
+                                 "--out_npz_dir", out_dir, "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+    finally:
+        bn_stats_ab.sample = sample
+    name = os.path.basename(run_dir.rstrip("/"))
+    if [r["set"] for r in rows] != ["reals", f"{name}:bn_running", f"{name}:bn_batch"] or any(
+            r["n"] != DIAG_SAMPLES for r in rows):
+        raise RuntimeError(f"phase 17, bn_stats_ab: rows {rows}")
+    if len(digests) != 2 or any(a != b for a, b in digests):
+        raise RuntimeError(f"phase 17, bn_stats_ab: the generator's buffers before and after "
+                           f"each pass {digests}")
+    with np.load(os.path.join(out_dir, f"{name}_bn_running.npz")) as d:
+        running = torch.from_numpy(d["samples"]).permute(0, 3, 1, 2)
+    latents = torch.from_numpy(bn_stats_ab.eval_latents()).to("cuda")
+    want = torch.cat([make_sample_fn(gan)(state, latents[i:i + DIAG_CHUNK]).cpu()
+                      for i in range(0, DIAG_SAMPLES, DIAG_CHUNK)])
+    torch.testing.assert_close(running, want, **FWD_TOL,
+                               msg=lambda m: f"phase 17, bn_stats_ab's running pass: {m}")
+    log(f"[diagnose] bn_stats_ab on phase 7's run directory: {seconds:.1f} s; the generator's "
+        f"buffers {digests[1][0][:12]}... before and after the batch pass; running pass equal "
+        f"to the eval-mode generator (max |diff| {float((running - want).abs().max()):.2e}); "
+        + "; ".join(json.dumps(r) for r in rows[1:]) + f" on {card}")
+    return {"rows": rows, "seconds": seconds, "buffers_digest": digests[1][0]}
+
+
+def run_convert(workdir, card):
+    """Phase 17 (c): ``convert_inception`` on a torchvision state dict made
+    from ``random_inception_params`` with a random γ folded out; the npz on
+    the card gives the source parameters' features. Returns its record."""
+    from blurred_gan_tpu_torch.metrics.inception import (
+        MIN_INPUT_HW, inception_features, load_inception_weights, random_inception_params)
+    from blurred_gan_tpu_torch.tools import convert_inception
+
+    params = random_inception_params(0)
+    gen = torch.Generator().manual_seed(1)
+    sd = {}
+    for scope, unit in params.items():
+        mod = scope.replace("/", ".")
+        g = 0.5 + torch.rand(unit["beta"].shape, generator=gen)
+        sd[f"{mod}.conv.weight"] = unit["w"] / g[:, None, None, None]
+        sd[f"{mod}.bn.weight"], sd[f"{mod}.bn.bias"] = g, unit["beta"]
+        sd[f"{mod}.bn.running_mean"], sd[f"{mod}.bn.running_var"] = unit["mean"] / g, unit["var"]
+    src, out = (os.path.join(workdir, n) for n in ("inception_v3.pth", "inception_v3.npz"))
+    torch.save(sd, src)
+    t0 = time.perf_counter()
+    convert_inception.main([src, out])
+    seconds = time.perf_counter() - t0
+    device = torch.device("cuda:0")
+    loaded = load_inception_weights(out, device=device)
+    x = torch.rand((DIAG_INCEPTION_BATCH, 3, MIN_INPUT_HW, MIN_INPUT_HW),
+                   generator=gen).to(device) * 2 - 1
+    with torch.no_grad():
+        got = inception_features(loaded, x)
+        want = inception_features({s: {f: t.to(device) for f, t in u.items()}
+                                   for s, u in params.items()}, x)
+    torch.testing.assert_close(got, want, **DIAG_INCEPTION_TOL,
+                               msg=lambda m: f"phase 17, the converted weights' features: {m}")
+    err = float((got - want).abs().max())
+    log(f"[diagnose] convert_inception: a torchvision state dict to "
+        f"{os.path.getsize(out) / 1e6:.1f} MB of npz in {seconds:.1f} s; loaded on {device}, its "
+        f"features of "
+        f"{DIAG_INCEPTION_BATCH} images at {MIN_INPUT_HW}² within {err:.2e} of the source "
+        f"parameters' on {card}")
+    return {"seconds": seconds, "features_max_abs_err": err}
+
+
+def run_diagnostics(blur_cuda, blur_matrix, full_args, workdir, card):
+    """Phase 17: the three diagnostic tools on what phase 7 left. Returns the
+    record for the JSON line."""
+    from blurred_gan_tpu_torch import generate_samples
+
+    run_dir = full_args.log_dir
+    gan, state, _ = generate_samples.restore_run(run_dir, "celeba", RES, torch.device("cuda"))
+    runs = run_diagnose(blur_cuda, state, gan, workdir, card)
+    # The kernel at the objective's chunk: 100 images of 3 planes.
+    timing = time_blur(blur_cuda, blur_matrix, torch.device("cuda"), 3 * DIAG_CHUNK,
+                       DIAG_SIGMA, card)
+    bn = run_bn_ab(state, gan, run_dir, workdir, card)
+    converted = run_convert(workdir, card)
+    non_jax_check()
+    return {"launches": runs["kernel"]["launches"], "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": timing["plain_ms"],
+            "planes": timing["planes"], "sigma": DIAG_SIGMA,
+            "diagnose": {name: {k: v for k, v in r.items() if k != "rows"}
+                         for name, r in runs.items()},
+            "objective": runs["kernel"]["rows"][-1]["blurred_objective"],
+            "bn_stats_ab": bn, "convert_inception": converted}
+
+
 def run_data_parallel(blur_cuda, blur_matrix, device, workdir, slice_history, card):
     """Phase 16: the data-parallel path (``runtime``, ``parallel``, the
     step's and the Trainer's multi-process paths) on this card."""
@@ -2751,6 +2962,8 @@ def main():
             folder = run_folder(blur_cuda, trainer.dataset, workdir, card)
         with phase("16 data parallelism"):
             parallel = run_data_parallel(blur_cuda, blur_matrix, device, workdir, history, card)
+        with phase("17 diagnostic tools"):
+            diagnostics = run_diagnostics(blur_cuda, blur_matrix, full_args, workdir, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -2764,7 +2977,7 @@ def main():
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
         "planes": headline["planes"], "cases": timings + mnist_timings,
         "variants": variants, "bf16": bf16, "serving": serving, "folder": folder,
-        "parallel": parallel}]}),
+        "parallel": parallel, "diagnostics": diagnostics}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,6 +72,7 @@ from test_torch_step import (
     B, D_CHANNELS, G_KW, GRAD_FLOOR, PARAM_ATOL, RES, SIGMA, flat_torch, to_torch_layout)
 from torch_variant_harness import (
     exact_rounding, jax_gan, jax_grads, jax_run, named, port_gan, port_run, reals_batches)
+from torch_jax_state import threefry_prng  # noqa: F401  (autouse: JAX's draws as pinned)
 
 BF16_UNIT = 2.0 ** -7
 FORWARD_REL_L2 = 2e-3

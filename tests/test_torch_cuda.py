@@ -373,3 +373,27 @@ def test_runner_keeps_its_graph_until_the_state_moves(cuda_device, tmp_path):
     assert tr.chunk_runner.graph is not None and tr.state.n_batches == 7
     assert all(group["capturable"] for group in tr.state.d_opt.param_groups)
     assert all(torch.isfinite(p).all() for p in tr.state.discriminator.parameters())
+
+
+def test_dropped_trainers_give_their_memory_back(cuda_device, tmp_path):
+    # A CelebA-16 Trainer built, run in the chunked mode (its runner, dataset
+    # copy and graphs on the card) and dropped, three times: after the first
+    # round, which allocates what a process keeps for good, the allocated
+    # bytes come back to the same level each time.
+    import gc
+
+    from blurred_gan_tpu_torch.models.dcgan import celeba_discriminator, celeba_generator
+
+    levels = []
+    for i in range(3):
+        tr = narrow_trainer(cuda_device, tmp_path / f"round{i}",
+                            GAN(celeba_generator(16), celeba_discriminator(16)))
+        tr.fit_device_resident(total_examples=10_000, chunk_steps=2, max_chunks=1)
+        assert tr.chunk_runner.graph is not None
+        tr.close()
+        del tr
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        levels.append(torch.cuda.memory_allocated())
+    assert all(abs(level - levels[0]) <= 2 ** 20 for level in levels[1:]), levels

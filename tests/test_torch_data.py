@@ -36,6 +36,15 @@ def test_synthetic_dataset_byte_equal(shape, n):
     assert a.name == b.name
 
 
+@pytest.mark.parametrize("shape,n", [((16, 16, 3), 40), ((28, 28, 1), 40), ((12, 20, 3), 9)])
+def test_synthetic_images_at_indices_byte_equal(shape, n):
+    # Any images of the corpus, in any order, rendered alone.
+    want = jp.synthetic_dataset(shape, num_examples=n, seed=5).images
+    idx = np.random.RandomState(0).permutation(n)[: n // 2]
+    assert tp.synthetic_images(shape, idx, seed=5).tobytes() == want[idx].tobytes()
+    assert tp.synthetic_images(shape, [], seed=5).shape == (0, *shape)
+
+
 @pytest.mark.parametrize("start_epoch,start_batch", [(0, 0), (1, 3)])
 def test_pipeline_batches_byte_equal(start_epoch, start_batch):
     # 40 examples at batch 8: 5 batches an epoch, so 12 batches cross two
@@ -76,11 +85,17 @@ def test_exponential_decay_equal():
     assert [got(s) for s in (0, 50, 150, 1234)] == [want(s) for s in (0, 50, 150, 1234)]
 
 
-def test_load_celeba_raises_on_jpeg_directory(tmp_path):
+def test_load_celeba_raises_on_jpeg_directory(tmp_path, monkeypatch):
     # A directory of JPEGs loads as the JAX package's does (an image folder
     # with the same files, decoded to the same bytes); it raises only where
-    # a file does not decode, and then names it.
+    # a file does not decode, and then names it. Both packages decode with
+    # the same decoder: the JAX loader is built here if this process lost
+    # its first-build race (tests/torch_jax_state.py).
     from PIL import Image
+
+    from torch_jax_state import ensure_jax_native
+
+    ensure_jax_native(monkeypatch)
 
     images = jp.synthetic_dataset((40, 32, 3), num_examples=5, seed=6).images
     for i, img in enumerate(images):

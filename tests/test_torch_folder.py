@@ -32,6 +32,7 @@ from blurred_gan_tpu_torch.data import pipeline as tp
 from blurred_gan_tpu_torch.tools import make_shards
 from blurred_gan_tpu_torch.utils import logging as logging_mod
 from test_torch_mnist import parser_flags, script_flags, write_mnist_npz
+from torch_jax_state import ensure_jax_native
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RES = 16
@@ -64,11 +65,20 @@ def folder(tmp_path_factory):
     return str(d)
 
 
+@pytest.fixture(autouse=True)
+def jax_loader(monkeypatch):
+    """Whether the JAX package's native loader is there. Every case holds the
+    port's decode against the JAX package's, each on its default decoder
+    unless it says otherwise, so the JAX loader is built here if this process
+    lost its first-build race (tests/torch_jax_state.py)."""
+    return ensure_jax_native(monkeypatch)
+
+
 @pytest.fixture
-def needs_native():
+def needs_native(jax_loader):
     if not native.available():
         pytest.skip(f"native loader unavailable: {native.build_error()}")
-    if not jax_native.available():
+    if not jax_loader:
         pytest.skip(f"the JAX package's native loader unavailable: {jax_native.build_error()}")
 
 

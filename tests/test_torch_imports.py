@@ -4,8 +4,9 @@ A fresh interpreter (this test process imports jax itself, in
 tests/conftest.py) imports every module of ``blurred_gan_tpu_torch``, runs one
 CPU step of the entry point as ``python -m`` would, and imports
 ``chip_smoke``; then neither ``jax`` nor any ``blurred_gan_tpu`` module may be
-in ``sys.modules``, nor Pillow, which the card's machine may lack. Its own
-source files are checked the same way. TensorBoard's writer is off in the
+in ``sys.modules``, nor Pillow, which the card's machine may lack, nor
+``tensorflow``, which it lacks. Its own source files are checked the same
+way. TensorBoard's writer is off in the
 child (where TensorFlow is installed, ``torch.utils.tensorboard`` imports it,
 which takes long and is beside the point here).
 """
@@ -38,7 +39,8 @@ assert {"blurred_gan_tpu_torch.metrics.fid", "blurred_gan_tpu_torch.metrics.swd"
         "blurred_gan_tpu_torch.metrics.prdc", "blurred_gan_tpu_torch.utils.profiling",
         "blurred_gan_tpu_torch.native", "blurred_gan_tpu_torch.tools.make_shards",
         "blurred_gan_tpu_torch.runtime", "blurred_gan_tpu_torch.parallel",
-        "blurred_gan_tpu_torch.dryrun",
+        "blurred_gan_tpu_torch.dryrun", "blurred_gan_tpu_torch.tools.diagnose_samples",
+        "blurred_gan_tpu_torch.tools.bn_stats_ab", "blurred_gan_tpu_torch.tools.convert_inception",
         } <= set(names), names
 import blurred_gan_tpu_torch.utils.logging as logging_mod
 logging_mod._summary_writer = lambda log_dir: None
@@ -51,7 +53,8 @@ bad = sorted(m for m in sys.modules
              or m.startswith("blurred_gan_tpu."))
 assert not bad, bad
 # The card's machine may have no Pillow: it is imported only to decode with it.
-pil = sorted(m for m in sys.modules if m == "PIL" or m.startswith("PIL."))
+# Nor tensorflow: convert_inception imports it only to read a TF-slim checkpoint.
+pil = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "tensorflow"))
 assert not pil, pil
 print("imported", len(names), "modules")
 """

@@ -343,13 +343,18 @@ def test_shape_mismatch_rejected(sample_sets, tmp_path, capsys):
         run_score(capsys, "--real", sample_sets[0], "--fake", p)
 
 
-def test_directory_input_is_item_9(sample_sets, small_fid, tmp_path, capsys):
+def test_directory_input_is_item_9(sample_sets, small_fid, tmp_path, capsys, monkeypatch):
     # A directory of images scores as the npz of its images decoded by the
     # JAX package (centre crop, resize to --resolution); --resolution is
-    # required with a directory.
+    # required with a directory. The JAX loader is built here if this
+    # process lost its first-build race (tests/torch_jax_state.py), so both
+    # sides decode with the same decoder.
     from PIL import Image
 
     from blurred_gan_tpu.data.pipeline import ImageFolderDataset as JaxImageFolderDataset
+    from torch_jax_state import ensure_jax_native
+
+    ensure_jax_native(monkeypatch)
 
     rs = np.random.RandomState(1)
     d = tmp_path / "imgs"

@@ -26,6 +26,7 @@ from blurred_gan_tpu.metrics import inception as jinc
 from blurred_gan_tpu.metrics import swd as jswd
 from blurred_gan_tpu_torch.convert import inception_params_to_torch, random_conv_weights_to_torch
 from blurred_gan_tpu_torch.metrics import fid, inception, swd
+from torch_jax_state import threefry_prng  # noqa: F401  (autouse: JAX's draws as pinned)
 
 
 def nchw(x):
