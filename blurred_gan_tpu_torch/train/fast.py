@@ -262,10 +262,14 @@ class ChunkRunner:
             return decayed_sigma(self.blur_controller, self.n_batches)
         return torch.full((), self.constant_sigma, dtype=torch.float32, device=self.device)
 
+    def _reals(self) -> torch.Tensor:
+        """The batch of row ``self.row``, gathered from the device store."""
+        return self.data.index_select(0, self.idx.index_select(0, self.row.reshape(1))[0])
+
     def _step(self, phase: Phase) -> torch.Tensor:
         """One step of ``phase``, row ``self.row`` of the chunk. Launches only
         device work."""
-        reals = self.data.index_select(0, self.idx.index_select(0, self.row.reshape(1))[0])
+        reals = self._reals()
         sigma = self._sigma()
         gated = self.adaptive is not None
         if gated:

@@ -146,6 +146,14 @@ Phases, each of which raises on failure:
     ``convert_inception`` on a torchvision state dict made from
     ``random_inception_params``, its npz loaded on the card giving the source
     parameters' features;
+18. the bench: ``python -m blurred_gan_tpu_torch.bench`` in a process of its
+    own for each of the default (bfloat16, with the b128 peak), ``--f32``,
+    ``--f32 --blur_impl torch``, ``--f32 --chunked``, ``--infer`` and
+    ``--infer_export``, one after another: each line printed, exit 0,
+    ``correct`` true, the card's name as this script reads it, 6 blur
+    launches a step and some in the timed runs with the kernel and none
+    without, one ``flops_per_step`` for the train arms and one for the infer
+    arms; ``--f32 --chunked``'s rate beside phase 10's;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -215,14 +223,13 @@ VARIANT_CHUNK, VARIANT_TIMED_CHUNKS = 10, 2
 # the bound on a bfloat16 step against the float32 one, |bf16 − f32| <=
 # GROSS_REL·|f32| + GROSS_ABS, which only a broken step exceeds (the JAX
 # package's own gap at narrow widths is 3e-2 relative at most); fit's steps
-# per timed run; the step's FLOPs (PERF.md §5) and the card's dense bf16
-# tensor-core peak.
+# per timed run; the card's dense bf16 tensor-core peak.
 PRECISIONS = (("float32", {}), ("bf16", {"bf16": True}),
               ("bf16_fast_gen", {"bf16": True, "fast_gen": True}))
 BF16_STEP_TOL = dict(rtol=1e-2, atol=1e-3)
 GROSS_REL, GROSS_ABS = 0.25, 1e-3
 BF16_FIT_STEPS = 24
-STEP_FLOPS, PEAK_BF16_FLOPS = 167e9, 989e12
+PEAK_BF16_FLOPS = 989e12
 
 
 # Phase 14: the grid's σ (generate_samples --blur_std) and its sample count;
@@ -263,6 +270,14 @@ DP_TIMEOUT = 300.0
 DIAG_SAMPLES, DIAG_SIGMA, DIAG_CHUNK = 1000, SIGMA0, 100
 DIAG_TOL = dict(rel_tol=1e-3, abs_tol=0.01)
 DIAG_INCEPTION_BATCH, DIAG_INCEPTION_TOL = 8, dict(rtol=1e-4, atol=1e-4)
+# Phase 18: the bench's invocations, each a process of its own, one after
+# another, with the blur launches of one eager step each must read; a run's
+# time limit.
+BENCH_RUNS = (("default", [], 6), ("f32", ["--f32"], 6),
+              ("f32_torch", ["--f32", "--blur_impl", "torch"], 0),
+              ("f32_chunked", ["--f32", "--chunked"], 6), ("infer", ["--infer"], 0),
+              ("infer_export", ["--infer_export"], 0))
+BENCH_TIMEOUT = 300.0
 
 
 def log(msg: str) -> None:
@@ -342,13 +357,6 @@ def check_history(trainer, history, what: str) -> None:
         want = trainer.blur_controller.sigma(n)
         if not math.isclose(logs["std"], want, rel_tol=1e-6):
             raise RuntimeError(f"{what}, step {n + 1}: sigma {logs['std']} != schedule {want}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def kernel_cases(blur_matrix, device):
@@ -1006,7 +1014,8 @@ def losses_close(a, b) -> bool:
 
 
 def run_chunked(blur_cuda, workdir, slice_history, slice_rate, step_rate, card):
-    """Phase 10: the chunked mode against the host loop, then its numbers."""
+    """Phase 10: the chunked mode against the host loop, then its numbers.
+    Returns the chunked images/s."""
     from blurred_gan_tpu_torch.train_celeba import build_trainer
 
     def trainer(name):
@@ -1078,7 +1087,7 @@ def run_chunked(blur_cuda, workdir, slice_history, slice_rate, step_rate, card):
         f"the first with its capture of {chunked.chunk_runner.capture_seconds:.2f} s); fit "
         f"{slice_rate:.1f} img/s (phase 4), fixed-batch eager step {step_rate:.1f} img/s "
         f"(phase 5); device busy {100 * busy:.1f}% of a chunk's wall time on {card}")
-    return host_launches
+    return chunked_rate
 
 
 def run_mnist(blur_cuda, blur_matrix, device, workdir, card):
@@ -1603,10 +1612,11 @@ def time_chunk(trainer):
     return time.perf_counter() - t0
 
 
-def profile_precision(trainer, name, card):
+def profile_precision(trainer, name, step_flops, card):
     """Phase 13f: one replayed chunk under torch.profiler: the top kernels,
     the busy share, the blur's and the copy kernels' time (the dtype casts
-    and the layout copies), TFLOP/s. Trains the state on."""
+    and the layout copies), TFLOP/s at ``step_flops`` a step. Trains the
+    state on."""
     from torch.profiler import ProfilerActivity, profile
 
     from blurred_gan_tpu_torch.train.fast import chunk_indices
@@ -1637,7 +1647,7 @@ def profile_precision(trainer, name, card):
     # cuDNN's own NCHW <-> NHWC transposes around its NHWC kernels.
     layout = sum(r[0] for r in rows if "nchwToNhwc" in r[1] or "nhwcToNchw" in r[1])
     step_s = wall_us / k / 1e6
-    tflops = STEP_FLOPS / step_s / 1e12
+    tflops = step_flops / step_s / 1e12
     log(f"[bf16] {name}, profiled chunk of {k} replayed steps: wall {wall_us / k / 1e3:.2f} "
         f"ms/step, device busy {busy / k / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}% of "
         f"wall); blur_planes {blur_n / k:.1f} launches, {blur / k:.1f} us/step "
@@ -1646,7 +1656,7 @@ def profile_precision(trainer, name, card):
         f"bfloat16 casts {casts / k / 1e3:.3f} ms ({100 * casts / busy:.1f}%); cuDNN's NCHW/NHWC "
         f"transposes {layout / k / 1e3:.3f} ms/step ({100 * layout / busy:.1f}%); {tflops:.1f} "
         f"TFLOP/s at "
-        f"{STEP_FLOPS / 1e9:.0f} GFLOP/step = {100 * tflops * 1e12 / PEAK_BF16_FLOPS:.2f}% of the "
+        f"{step_flops / 1e9:.1f} GFLOP/step = {100 * tflops * 1e12 / PEAK_BF16_FLOPS:.2f}% of the "
         f"dense bf16 peak, {100 * tflops * 1e12 / PEAK_F32_FLOPS:.1f}% of the float32 peak on "
         f"{card}")
     for dev, key, count in sorted(rows, reverse=True)[:10]:
@@ -1663,6 +1673,8 @@ def profile_precision(trainer, name, card):
 def run_bf16(blur_cuda, dataset, workdir, card, f32_default):
     """Phase 13. Returns its record for the JSON line."""
     import gc
+
+    from blurred_gan_tpu_torch.bench import train_step_flops
 
     reals = torch.from_numpy(next(dataset.batches(BATCH, seed=1))).to("cuda")
     fit_launches = {name: bf16_fit(blur_cuda, workdir, name, flags)
@@ -1687,7 +1699,10 @@ def run_bf16(blur_cuda, dataset, workdir, card, f32_default):
     chunk_s = {name: [] for name in trainers}
     for name in order:
         chunk_s[name].append(time_chunk(trainers[name]))
-    profiles = {name: profile_precision(tr, name, card) for name, tr in trainers.items()}
+    # The configuration's count (bench.train_step_flops), one for all three.
+    step_flops = train_step_flops(RES, next(iter(trainers.values())).hparams)
+    profiles = {name: profile_precision(tr, name, step_flops, card)
+                for name, tr in trainers.items()}
     fit_rates = {name: [] for name in trainers}
     fit_peak = {}
     for name in order:
@@ -1807,19 +1822,6 @@ def last_json(output: str) -> dict:
     return json.loads(output.strip().splitlines()[-1])
 
 
-def generator_flops_per_image(latent_size: int) -> float:
-    """FLOPs of the CelebA-128 generator per image, counted by
-    ``torch.utils.flop_counter`` at batch 2 on the CPU."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from blurred_gan_tpu_torch.models.dcgan import celeba_generator, init_weights
-
-    gen = init_weights(celeba_generator(RES), torch.Generator().manual_seed(0)).eval()
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        gen(torch.rand(2, latent_size))
-    return counter.get_total_flops() / 2
-
-
 def serving_speed(gan, state, artifact, card):
     """Generator images/s at each of ``SERVE_BATCHES``, eager ``make_sample_fn``
     and the loaded artifact in turns: the median of ``SERVE_CALLS``
@@ -1860,6 +1862,7 @@ def run_serving(blur_cuda, blur_matrix, full_args, dataset, workdir, card):
     import numpy as np
 
     from blurred_gan_tpu_torch import generate_samples
+    from blurred_gan_tpu_torch.bench import generator_flops_per_image
     from blurred_gan_tpu_torch.metrics.fid import random_conv_features
     from blurred_gan_tpu_torch.metrics.kid import kid
     from blurred_gan_tpu_torch.metrics.prdc import prdc
@@ -2002,7 +2005,7 @@ def run_serving(blur_cuda, blur_matrix, full_args, dataset, workdir, card):
     ema_trainer.close()
     del ema_trainer
 
-    flops = generator_flops_per_image(gan.latent_size)
+    flops = generator_flops_per_image(RES, gan.latent_size)
     speed = serving_speed(gan, state, artifact, card)
     non_jax_check()
 
@@ -2889,9 +2892,61 @@ def run_data_parallel(blur_cuda, blur_matrix, device, workdir, slice_history, ca
                 "all_reduce_ms": nccl[0]["all_reduce_ms"]}}
 
 
+def bench_line(output: str) -> dict:
+    """The bench's JSON line in a process's output (its stderr interleaved)."""
+    for line in reversed(output.splitlines()):
+        if line.startswith('{"backend"'):
+            return json.loads(line)
+    raise RuntimeError(f"phase 18: no bench line in\n{output[-3000:]}")
+
+
+def run_bench(workdir, chunked_rate, card):
+    """Phase 18: ``python -m blurred_gan_tpu_torch.bench`` as a user runs it,
+    once for each of ``BENCH_RUNS``. Returns the lines by run."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the bench's
+    lines = {}
+    for name, argv, per_step in BENCH_RUNS:
+        job = {name: (["-m", "blurred_gan_tpu_torch.bench", *argv], HERE, None)}
+        rc, output, seconds = run_processes(job, workdir, timeout=BENCH_TIMEOUT,
+                                            what="phase 18")[name]
+        if rc != 0:
+            raise RuntimeError(f"phase 18, bench {' '.join(argv)}: exit code {rc}\n"
+                               f"{output[-3000:]}")
+        line = bench_line(output)
+        log(f"[bench] {' '.join(argv) or '(no flags)'}, {seconds:.1f} s: {json.dumps(line)}")
+        missing = [k for k in ("device", "power_limit_w", "flops_per_step", "mfu")
+                   if k not in line]
+        if line["correct"] is not True or missing or not card.startswith(line["device"]):
+            raise RuntimeError(f"phase 18, bench {name}: correct {line['correct']}, missing "
+                               f"{missing}, device {line['device']!r} on {card}")
+        # The kernel in the eager step and in the timed runs' warm-up and
+        # capture, or in neither.
+        if line["blur_launches_per_step"] != per_step or (line["blur_launches"] > 0) != (
+                per_step > 0):
+            raise RuntimeError(f"phase 18, bench {name}: {line['blur_launches_per_step']} "
+                               f"blur launches a step, {line['blur_launches']} in the timed "
+                               f"runs; want {per_step} a step")
+        lines[name] = dict(line, seconds=seconds)
+    # One count for one configuration, whatever blur, dtype or mode runs it.
+    for group in (("default", "f32", "f32_torch", "f32_chunked"), ("infer", "infer_export")):
+        counts = {lines[n]["flops_per_step"] for n in group}
+        if len(counts) != 1:
+            raise RuntimeError(f"phase 18: flops_per_step {counts} across {group}")
+    log(f"[bench] --f32 --chunked {lines['f32_chunked']['value']:.1f} img/s (median of "
+        f"{len(lines['f32_chunked']['windows'])} chunks of {lines['f32_chunked']['chunk_steps']}, "
+        f"its own process) beside phase 10's chunked {chunked_rate:.1f} img/s (median of chunks "
+        f"2-{TIMED_CHUNKS} of {TIMED_CHUNK}) on {card}")
+    return lines
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
+    from blurred_gan_tpu_torch.bench import card_line
+
     card = card_line()
     log(card)
     device = torch.device("cuda:0")
@@ -2947,7 +3002,7 @@ def main():
             run_eval(full, step_rate, card)
         del full, kernel_trainer
         with phase("10 chunked"):
-            run_chunked(blur_cuda, workdir, history, slice_rate, step_rate, card)
+            chunked_rate = run_chunked(blur_cuda, workdir, history, slice_rate, step_rate, card)
         with phase("11 MNIST"):
             mnist_timings = run_mnist(blur_cuda, blur_matrix, device, workdir, card)
         with phase("12 variants"):
@@ -2964,6 +3019,8 @@ def main():
             parallel = run_data_parallel(blur_cuda, blur_matrix, device, workdir, history, card)
         with phase("17 diagnostic tools"):
             diagnostics = run_diagnostics(blur_cuda, blur_matrix, full_args, workdir, card)
+        with phase("18 bench"):
+            bench = run_bench(workdir, chunked_rate, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -2977,7 +3034,7 @@ def main():
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
         "planes": headline["planes"], "cases": timings + mnist_timings,
         "variants": variants, "bf16": bf16, "serving": serving, "folder": folder,
-        "parallel": parallel, "diagnostics": diagnostics}]}),
+        "parallel": parallel, "diagnostics": diagnostics, "bench": bench}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2989,6 +3046,8 @@ def data_parallel_only():
     alone, for a machine with two cards or more, where phase 16 runs (c)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
+    from blurred_gan_tpu_torch.bench import card_line
+
     card = card_line()
     log(f"{card} x{torch.cuda.device_count()}")
     from blurred_gan_tpu_torch.entry import set_float32_precision
