@@ -61,7 +61,6 @@ import functools
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 from dataclasses import replace
@@ -72,7 +71,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode, conv_flop_count
 
 from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
-from blurred_gan_tpu_torch.entry import setup_device
+from blurred_gan_tpu_torch.entry import device_fields, setup_device
 from blurred_gan_tpu_torch.models.dcgan import (
     SameConv2d, SameConvTranspose2d, _conv_transpose_pad_lo, _same_pads, celeba_discriminator,
     celeba_generator)
@@ -106,27 +105,6 @@ LOSS_KEYS = ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores", "re
 PEAK_FLOPS = (("H100 80GB HBM3", {torch.bfloat16: 989.4e12, torch.float32: 66.9e12}),)
 # The batch the FLOPs are counted at (times grad_accum), then scaled.
 FLOP_BATCH = 2
-
-
-def card_line() -> str:
-    """The card's name and power limit as ``nvidia-smi`` gives them, e.g.
-    ``NVIDIA H100 80GB HBM3, 700.00 W``."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def device_fields(device: torch.device) -> dict:
-    """``device`` and ``power_limit_w`` of the output line."""
-    if device.type != "cuda":
-        return {"device": "cpu", "power_limit_w": None}
-    name, limit = card_line().rsplit(",", 1)
-    try:
-        watts = float(limit.split()[0])
-    except ValueError:  # "[N/A]"
-        watts = None
-    return {"device": name.strip(), "power_limit_w": watts}
 
 
 def peak_flops(device: torch.device, dtype: torch.dtype) -> Optional[float]:

@@ -14,6 +14,7 @@ process's batch and the global batch is N times it.
 from __future__ import annotations
 
 import argparse
+import subprocess
 
 import torch
 import torch.distributed as dist
@@ -33,6 +34,28 @@ def set_float32_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, e.g.
+    ``NVIDIA H100 80GB HBM3, 700.00 W``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_fields(device: torch.device) -> dict:
+    """``device`` and ``power_limit_w`` of a run's record (the bench's line,
+    a quality run's meta)."""
+    if device.type != "cuda":
+        return {"device": "cpu", "power_limit_w": None}
+    name, limit = card_line().rsplit(",", 1)
+    try:
+        watts = float(limit.split()[0])
+    except ValueError:  # "[N/A]"
+        watts = None
+    return {"device": name.strip(), "power_limit_w": watts}
 
 
 def add_common_arguments(parser: argparse.ArgumentParser) -> None:

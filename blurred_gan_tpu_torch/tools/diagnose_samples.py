@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from blurred_gan_tpu_torch import quality
 from blurred_gan_tpu_torch.data.pipeline import synthetic_images
 from blurred_gan_tpu_torch.entry import setup_device
 from blurred_gan_tpu_torch.metrics.fid import FIDMetric
@@ -45,19 +46,12 @@ from blurred_gan_tpu_torch.metrics.swd import SWDMetric
 from blurred_gan_tpu_torch.ops.blur import blur_images
 from blurred_gan_tpu_torch.utils.images import NHWC_to_NCHW, save_image_grid
 
-N_EVAL = 1000
+N_EVAL = quality.N_EVAL
 CHUNK = 100  # images a blur call and a metric update take
 BANDS = (("low_r<4", 0, 4), ("mid_4-12", 4, 12),
          ("hi_12-24", 12, 24), ("vhi_24+", 24, 10 ** 9))
-# The corpus of each quality-parity configuration, (image_shape, corpus_n),
-# as benchmarks/quality_parity.py defines them.
-CONFIGS = {
-    "mnist": ((28, 28, 1), 60_000),
-    "celeba64": ((64, 64, 3), 20_000),
-    "celeba128": ((128, 128, 3), 20_000),
-    "celeba64_sharp": ((64, 64, 3), 20_000),
-    "celeba128_sharp": ((128, 128, 3), 20_000),
-}
+# The corpus of each quality-check configuration, (image_shape, corpus_n).
+CONFIGS = {name: (cfg.image_shape, cfg.corpus_n) for name, cfg in quality.CONFIGS.items()}
 
 
 def spectrum_bands(x: np.ndarray) -> dict:

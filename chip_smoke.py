@@ -154,6 +154,15 @@ Phases, each of which raises on failure:
     launches a step and some in the timed runs with the kernel and none
     without, one ``flops_per_step`` for the train arms and one for the infer
     arms; ``--f32 --chunked``'s rate beside phase 10's;
+19. the quality check's train side: ``quality.train`` in this process on
+    ``mnist`` (3,200 examples, float32), ``celeba64_sharp --bf16`` (640) and
+    the heavy-blur ``celeba64`` (640, float32, σ₀ 5, where the blur is no
+    identity), seed 0: 6 kernel launches in every step, finite losses, σ on the
+    schedule, the first step's losses within phase 4's tolerance (phase 13's
+    for bfloat16) of a one-step run with the plain blur, which launches
+    none; 1000 finite samples NHWC in [-1, 1] and a meta with
+    ``train_ours``'s keys and the card; each run's img/s; the kernel at 64²
+    (192 and 96 planes, σ 0.05 and 5) against its plain version and bound;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -278,6 +287,16 @@ BENCH_RUNS = (("default", [], 6), ("f32", ["--f32"], 6),
               ("f32_chunked", ["--f32", "--chunked"], 6), ("infer", ["--infer"], 0),
               ("infer_export", ["--infer_export"], 0))
 BENCH_TIMEOUT = 300.0
+# Phase 19: the quality check's runs (configuration, examples, arm), seed 0;
+# the keys of the meta that benchmarks/quality_parity.py train_ours writes for
+# a plain run, and the device's fields the port adds; the 64² blur timings'
+# σ (the sharp and the heavy-blur surfaces' σ₀).
+QUALITY_RUNS = (("mnist", 3200, {}), ("celeba64_sharp", 640, {"bf16": True}),
+                ("celeba64", 640, {}))
+TRAIN_OURS_META = {"framework", "config", "seed", "examples", "backend", "ema_decay",
+                   "compute_dtype", "images_per_sec", "elapsed_s"}
+QUALITY_META = TRAIN_OURS_META | {"device", "power_limit_w"}
+QUALITY_SIGMAS = (0.05, 5.0)
 
 
 def log(msg: str) -> None:
@@ -2942,10 +2961,109 @@ def run_bench(workdir, chunked_rate, card):
     return lines
 
 
+def quality_run(blur_cuda, workdir, config, examples, flags, plain=False):
+    """One ``quality.train`` run in this process, seed 0, with the blur
+    kernel's launches counted by step (``plain``: the plain blur). Returns
+    (meta, trainer, launches per step, launches, seconds)."""
+    from blurred_gan_tpu_torch import quality
+
+    trainers, per_step = [], []
+
+    def hook(trainer):
+        trainers.append(trainer)
+        per_step.append(count_step_launches(blur_cuda, trainer))
+        if plain:
+            trainer.gan.blur_impl = "torch"
+
+    out = os.path.join(workdir, "quality_plain" if plain else "quality", config)
+    blur_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    meta = quality.train(quality.CONFIGS[config], examples, out, 0, device="cuda",
+                         on_trainer=hook, **flags)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return meta, trainers[0], per_step[0], blur_cuda.launch_count, seconds
+
+
+def check_quality_outputs(out_dir, prefix, cfg, meta, card, what):
+    """The run's sample set (finite, NHWC, in [-1, 1], 1000 of the
+    configuration's shape, float32) and meta (train_ours's keys, the card)."""
+    with np.load(os.path.join(out_dir, f"{prefix}_samples_s0.npz")) as d:
+        samples = d["samples"]
+    if (samples.shape != (1000, *cfg.image_shape) or samples.dtype != np.float32
+            or not np.isfinite(samples).all() or samples.min() < -1 or samples.max() > 1):
+        raise RuntimeError(f"{what}: samples {samples.shape} {samples.dtype} in "
+                           f"[{samples.min()}, {samples.max()}]")
+    with open(os.path.join(out_dir, f"{prefix}_meta_s0.json")) as f:
+        written = json.load(f)
+    if (written != meta or set(meta) != QUALITY_META or not card.startswith(meta["device"])
+            or meta["compute_dtype"] != ("bfloat16" if prefix.endswith("bf16") else "float32")):
+        raise RuntimeError(f"{what}: meta {meta}, want the keys {sorted(QUALITY_META)} "
+                           f"and {card}")
+    return float(samples.std())
+
+
+def run_quality(blur_cuda, blur_matrix, device, workdir, card):
+    """Phase 19: ``quality.train`` (the quality check's train side) in this
+    process for each of ``QUALITY_RUNS``; each run's first step against a
+    one-step run with the plain blur; the kernel at 64²."""
+    from blurred_gan_tpu_torch import quality
+
+    runs = []
+    for config, examples, flags in QUALITY_RUNS:
+        cfg, what = quality.CONFIGS[config], f"phase 19, {config} {flags}"
+        meta, trainer, per_step, launches, seconds = quality_run(
+            blur_cuda, workdir, config, examples, flags)
+        steps = examples // BATCH
+        if per_step != [6] * steps or launches != 6 * steps:
+            raise RuntimeError(f"{what}: kernel launches by step {per_step}, {launches} in "
+                               f"the run; want 6 in each of {steps} steps")
+        history = list(trainer.history)
+        for n, logs in enumerate(history):
+            bad = [k for k in ("disc_loss", "gen_loss", "gp_term", "wgan_loss")
+                   if not math.isfinite(logs[k])]
+            if bad or logs["std"] != np.float32(trainer.blur_controller.sigma(n)):
+                raise RuntimeError(f"{what}, step {n + 1}: {bad} not finite or sigma "
+                                   f"{logs['std']} off the schedule")
+        prefix = quality.arm_prefix(**flags)
+        spread = check_quality_outputs(os.path.join(workdir, "quality", config), prefix, cfg,
+                                       meta, card, what)
+        _, plain_trainer, plain_steps, plain_launches, _ = quality_run(
+            blur_cuda, workdir, config, BATCH, flags, plain=True)
+        if plain_steps != [0] or plain_launches != 0:
+            raise RuntimeError(f"{what}: the plain run launched the kernel {plain_launches} "
+                               f"times")
+        tol = BF16_STEP_TOL if flags.get("bf16") else STEP_TOL
+        first, plain_first = history[0], plain_trainer.history[0]
+        keys = ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores", "real_scores")
+        far = [k for k in keys if not math.isclose(first[k], plain_first[k],
+                                                   rel_tol=tol["rtol"], abs_tol=tol["atol"])]
+        if far:
+            raise RuntimeError(f"{what}: first step, kernel vs plain blur: "
+                               f"{ {k: (first[k], plain_first[k]) for k in far} }")
+        rel = relative_diffs([plain_first], [first])[0]
+        log(f"[quality] {config} {prefix}: {steps} steps of Trainer.fit, 6 kernel launches "
+            f"a step ({launches}), d_loss {history[0]['disc_loss']:+.4f} -> "
+            f"{history[-1]['disc_loss']:+.4f}, sigma {history[0]['std']:.4f} -> "
+            f"{history[-1]['std']:.4f}; first step vs the plain blur within rtol "
+            f"{tol['rtol']} (largest relative difference {rel:.2e}); 1000 samples "
+            f"{cfg.image_shape} in [-1, 1], std {spread:.4f}; "
+            f"{meta['images_per_sec']:.1f} img/s in fit, the run {seconds:.1f} s on {card}")
+        runs.append({"config": config, "prefix": prefix, "examples": examples,
+                     "launches": launches, "launches_per_step": 6,
+                     "images_per_sec": meta["images_per_sec"], "seconds": seconds,
+                     "first_step_rel_diff": rel})
+    # 192 planes: the critic on cat([fakes, reals]) at 64², b32; 96: the other calls.
+    timings = [time_blur_graphed(blur_cuda, blur_matrix, device, planes, 64, sigma, card)
+               for sigma in QUALITY_SIGMAS for planes in (2 * BATCH * 3, BATCH * 3)]
+    non_jax_check()
+    return {"runs": runs, "cases": timings}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
-    from blurred_gan_tpu_torch.bench import card_line
+    from blurred_gan_tpu_torch.entry import card_line
 
     card = card_line()
     log(card)
@@ -3021,6 +3139,8 @@ def main():
             diagnostics = run_diagnostics(blur_cuda, blur_matrix, full_args, workdir, card)
         with phase("18 bench"):
             bench = run_bench(workdir, chunked_rate, card)
+        with phase("19 quality"):
+            quality = run_quality(blur_cuda, blur_matrix, device, workdir, card)
 
     headline = timings[0]  # σ₀, 192 planes
     print(json.dumps({"kernels": [{
@@ -3034,7 +3154,8 @@ def main():
         "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
         "planes": headline["planes"], "cases": timings + mnist_timings,
         "variants": variants, "bf16": bf16, "serving": serving, "folder": folder,
-        "parallel": parallel, "diagnostics": diagnostics, "bench": bench}]}),
+        "parallel": parallel, "diagnostics": diagnostics, "bench": bench,
+        "quality": quality}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3046,7 +3167,7 @@ def data_parallel_only():
     alone, for a machine with two cards or more, where phase 16 runs (c)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
-    from blurred_gan_tpu_torch.bench import card_line
+    from blurred_gan_tpu_torch.entry import card_line
 
     card = card_line()
     log(f"{card} x{torch.cuda.device_count()}")

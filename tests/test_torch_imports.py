@@ -41,7 +41,7 @@ assert {"blurred_gan_tpu_torch.metrics.fid", "blurred_gan_tpu_torch.metrics.swd"
         "blurred_gan_tpu_torch.runtime", "blurred_gan_tpu_torch.parallel",
         "blurred_gan_tpu_torch.dryrun", "blurred_gan_tpu_torch.tools.diagnose_samples",
         "blurred_gan_tpu_torch.tools.bn_stats_ab", "blurred_gan_tpu_torch.tools.convert_inception",
-        "blurred_gan_tpu_torch.bench"} <= set(names), names
+        "blurred_gan_tpu_torch.bench", "blurred_gan_tpu_torch.quality"} <= set(names), names
 import blurred_gan_tpu_torch.utils.logging as logging_mod
 logging_mod._summary_writer = lambda log_dir: None
 sys.argv = ["train_celeba", "--resolution", "16", "--batch_size", "4", "--num_examples", "32",
