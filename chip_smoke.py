@@ -8,7 +8,7 @@ Run from the root of the repository, with no arguments:
 (Phase 16 runs this file again in processes of its own, with ``--dp_worker``
 or ``--nccl_probe``. ``python3 chip_smoke.py --data_parallel`` runs the build,
 phase 4 and phase 16 alone: on a machine with two cards or more, NCCL across
-two of them as well.)
+two of them as well; ``--quality`` the build and phase 19 alone.)
 
 Phases, each of which raises on failure:
 
@@ -148,7 +148,9 @@ Phases, each of which raises on failure:
     parameters' features;
 18. the bench: ``python -m blurred_gan_tpu_torch.bench`` in a process of its
     own for each of the default (bfloat16, with the b128 peak), ``--f32``,
-    ``--f32 --blur_impl torch``, ``--f32 --chunked``, ``--infer`` and
+    ``--f32 --blur_impl torch --no_peak`` (the plain blur's A/B at b32; its
+    b128 peak was cut to pay for phase 19's scoring), ``--f32 --chunked``,
+    ``--infer`` and
     ``--infer_export``, one after another: each line printed, exit 0,
     ``correct`` true, the card's name as this script reads it, 6 blur
     launches a step and some in the timed runs with the kernel and none
@@ -163,6 +165,10 @@ Phases, each of which raises on failure:
     none; 1000 finite samples NHWC in [-1, 1] and a meta with
     ``train_ours``'s keys and the card; each run's img/s; the kernel at 64²
     (192 and 96 planes, σ 0.05 and 5) against its plain version and bound;
+    each run's 1000 samples scored on the card by ``quality.evaluate`` in
+    this process: the reals floor row and the set's, finite, with
+    ``evaluate``'s keys and ``"stack": "torch-cuda"``, the floor's SWD and
+    both FIDs below the set's, each row and its seconds logged;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -283,7 +289,7 @@ DIAG_INCEPTION_BATCH, DIAG_INCEPTION_TOL = 8, dict(rtol=1e-4, atol=1e-4)
 # another, with the blur launches of one eager step each must read; a run's
 # time limit.
 BENCH_RUNS = (("default", [], 6), ("f32", ["--f32"], 6),
-              ("f32_torch", ["--f32", "--blur_impl", "torch"], 0),
+              ("f32_torch", ["--f32", "--blur_impl", "torch", "--no_peak"], 0),
               ("f32_chunked", ["--f32", "--chunked"], 6), ("infer", ["--infer"], 0),
               ("infer_export", ["--infer_export"], 0))
 BENCH_TIMEOUT = 300.0
@@ -3003,6 +3009,35 @@ def check_quality_outputs(out_dir, prefix, cfg, meta, card, what):
     return float(samples.std())
 
 
+def score_quality_set(quality, cfg, out_dir, prefix, what, card):
+    """``quality.evaluate`` on the card over the run's sample set: the floor
+    row and the set's, each finite with ``evaluate``'s keys and the card's
+    stack, the floor's SWD and FIDs below the set's. Returns both rows and
+    the seconds."""
+    from blurred_gan_tpu_torch.metrics.swd import swd_resolutions
+
+    t0 = time.perf_counter()
+    rows = quality.evaluate(cfg, out_dir, [0], device="cuda")
+    seconds = time.perf_counter() - t0
+    keys = ({"samples", "stack", "SWDx1e3_avg", "fid_randconv", "fid_inception", "precision",
+             "recall", "density", "coverage", "kid", "kid_std"}
+            | {f"SWDx1e3_{r}" for r in swd_resolutions(cfg.image_shape[0])})
+    floor, row = rows["reals_floor"], rows.get(f"{prefix}_s0")
+    for r in (floor, row):
+        if (r is None or set(r) != keys or r["stack"] != "torch-cuda"
+                or not all(math.isfinite(v) for k, v in r.items()
+                           if k not in ("samples", "stack"))):
+            raise RuntimeError(f"{what}: evaluate's rows {rows}, want finite rows with the "
+                               f"keys {sorted(keys)} and stack torch-cuda")
+    above = [k for k in ("SWDx1e3_avg", "fid_randconv", "fid_inception") if floor[k] >= row[k]]
+    if above:
+        raise RuntimeError(f"{what}: the reals floor {floor} is not below the set {row} "
+                           f"in {above}")
+    log(f"[quality] {cfg.name} {prefix}: scored on the card in {seconds:.1f} s (2 rows): "
+        f"floor {json.dumps(floor)}; set {json.dumps(row)} on {card}")
+    return {"floor": floor, "row": row, "seconds": seconds}
+
+
 def run_quality(blur_cuda, blur_matrix, device, workdir, card):
     """Phase 19: ``quality.train`` (the quality check's train side) in this
     process for each of ``QUALITY_RUNS``; each run's first step against a
@@ -3049,10 +3084,12 @@ def run_quality(blur_cuda, blur_matrix, device, workdir, card):
             f"{tol['rtol']} (largest relative difference {rel:.2e}); 1000 samples "
             f"{cfg.image_shape} in [-1, 1], std {spread:.4f}; "
             f"{meta['images_per_sec']:.1f} img/s in fit, the run {seconds:.1f} s on {card}")
+        score = score_quality_set(quality, cfg, os.path.join(workdir, "quality", config),
+                                  prefix, what, card)
         runs.append({"config": config, "prefix": prefix, "examples": examples,
                      "launches": launches, "launches_per_step": 6,
                      "images_per_sec": meta["images_per_sec"], "seconds": seconds,
-                     "first_step_rel_diff": rel})
+                     "first_step_rel_diff": rel, "score": score})
     # 192 planes: the critic on cat([fakes, reals]) at 64², b32; 96: the other calls.
     timings = [time_blur_graphed(blur_cuda, blur_matrix, device, planes, 64, sigma, card)
                for sigma in QUALITY_SIGMAS for planes in (2 * BATCH * 3, BATCH * 3)]
@@ -3186,6 +3223,24 @@ def data_parallel_only():
     print(json.dumps({"parallel": parallel}), flush=True)
 
 
+def quality_only():
+    """``chip_smoke.py --quality``: the build and phase 19 alone."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch finds no CUDA device")
+    from blurred_gan_tpu_torch.entry import card_line, set_float32_precision
+    from blurred_gan_tpu_torch.ops import blur_cuda
+    from blurred_gan_tpu_torch.ops.blur import blur_matrix
+
+    card = card_line()
+    log(card)
+    set_float32_precision()
+    blur_cuda.build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        with phase("19 quality"):
+            quality = run_quality(blur_cuda, blur_matrix, torch.device("cuda:0"), workdir, card)
+    print(json.dumps({"quality": quality}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp_worker"]:
         dp_worker(json.loads(sys.argv[2]))
@@ -3193,5 +3248,7 @@ if __name__ == "__main__":
         nccl_probe()
     elif sys.argv[1:] == ["--data_parallel"]:
         data_parallel_only()
+    elif sys.argv[1:] == ["--quality"]:
+        quality_only()
     else:
         main()

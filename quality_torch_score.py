@@ -96,6 +96,7 @@ def make_scorer(reals: np.ndarray, use_inception: bool):
                     prdc_from_images(reals, fakes, k=5, batch=100).items()})
         row.update({k: round(v, 5) for k, v in
                     kid_from_images(reals, fakes, subset_size=500).items()})
+        row["stack"] = "jax"  # the metric implementation that scored the row
         print(json.dumps(row), flush=True)
         return row
 

@@ -193,10 +193,10 @@ def test_arm_files_and_meta_keys_are_train_ours(arm, tmp_path, monkeypatch, slic
         assert meta["sigma_final"] == quality.CONFIGS["mnist"].sigma0  # no change in warm-up
 
 
-# quality_parity.py's flags that only its evaluate and train_ref read, and
-# the port's own.
+# quality_parity.py's flags that only its evaluate reads, and the port's own
+# (evaluate's --dir, where quality_parity.py reads --out).
 EVALUATE_FLAGS = {"--seeds", "--inception", "--pool", "--rows_from", "--inception_size"}
-PORT_FLAGS = {"--device", "--concurrent_runs"}
+PORT_FLAGS = {"--device", "--concurrent_runs", "--dir"}
 
 
 def quality_parity_flags():
@@ -218,13 +218,18 @@ def test_flags_are_train_ours():
     mine = {a.option_strings[0]: a.default for a in parser._actions
             if a.option_strings and a.option_strings[0].startswith("--")
             and a.option_strings[0] != "--help"}
-    assert set(mine) == set(theirs) - EVALUATE_FLAGS | PORT_FLAGS
-    # the defaults, less --out's (the port writes inside its checkout) and
-    # the store_true flags' (None in the source, False parsed)
+    assert set(mine) == set(theirs) | PORT_FLAGS
+    assert EVALUATE_FLAGS <= set(mine)
+    # the defaults, less --out's (the port writes inside its checkout), the
+    # store_true flags' (None in the source, False parsed) and --inception's
+    # (the port scores the Inception column unless --no-inception, as the
+    # recorded rows have it)
     for flag in set(mine) - PORT_FLAGS - {"--out", "--bf16", "--adaptive",
-                                          "--ref_grad_scale"}:
+                                          "--ref_grad_scale", "--pool", "--inception"}:
         assert mine[flag] == theirs[flag], flag
     assert parser.parse_args(["train"]).device == "cuda"
+    assert parser.parse_args(["evaluate"]).inception
+    assert not parser.parse_args(["evaluate", "--no-inception"]).inception
 
 
 def test_one_arm_per_run(tmp_path, monkeypatch):
@@ -329,6 +334,7 @@ def test_scorer_row_is_evaluates(tmp_path, small_metrics, capsys):
     assert printed == {"reals_vs_reals": rows["reals_floor"], "torch_s0": rows["torch_s0"]}
     for mine, theirs in ((rows["torch_s0"], jax_rows["ours_s0"]),
                          (rows["reals_floor"], jax_rows["reals_vs_reals"])):
+        assert mine.pop("stack") == "jax"
         assert set(mine) == set(theirs) and len(mine) == 10
         assert {k: v for k, v in mine.items() if k != "samples"} == {
             k: v for k, v in theirs.items() if k != "samples"}
