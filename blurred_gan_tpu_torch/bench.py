@@ -5,10 +5,12 @@
     python -m blurred_gan_tpu_torch.bench --f32 --chunked  # the device-resident chunked mode
     python -m blurred_gan_tpu_torch.bench --infer_export   # the exported generator at b128
     python -m blurred_gan_tpu_torch.bench --device cpu     # CPU smoke: 32², b8, 3 steps
+    python -m blurred_gan_tpu_torch.bench --ablation       # the step's components, in turns
 
-Prints ONE JSON line and exits 0, or exits 1 when the line says
-``"correct": false``; a CUDA error raises. Without ``--device cpu`` it runs on
-the card and raises if there is none.
+Prints ONE JSON line (``--ablation``: one an arm, then its summary) and
+exits 0, or exits 1 when the (last) line says ``"correct": false``; a CUDA
+error raises. Without ``--device cpu`` it runs on the card and raises if
+there is none.
 
 Modes, each the port of a function of the root script:
 
@@ -29,6 +31,12 @@ Modes, each the port of a function of the root script:
   generator, live or through ``serving.load_generator(export_generator(...))``,
   float32 without TF32; each window's latents are drawn from a seed made of
   the previous window's probe values (the mean |image| of each batch).
+- ``--ablation`` (``benchmarks/step_ablation.py``): the default mode's
+  capture for each of :data:`ABLATION`'s arms (the full step, the step
+  without its generator step, without the penalty, without the blur), each
+  step-checked, their windows timed in turns (one of each arm a round); one
+  line per arm with the JAX script's keys, then its ``summary_ms`` line (each
+  component's marginal: ``full`` minus the arm without it).
 
 ``value`` is the MEDIAN of ``WINDOWS`` timed windows (``windows`` holds each
 one's rate), after one untimed window that captures or warms up. The root
@@ -64,7 +72,8 @@ import statistics
 import sys
 import time
 from dataclasses import replace
-from typing import Dict, Optional, Sequence
+from fractions import Fraction
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,10 +87,11 @@ from blurred_gan_tpu_torch.models.dcgan import (
 from blurred_gan_tpu_torch.ops import blur_cuda
 from blurred_gan_tpu_torch.sched.blur import BlurDecayController
 from blurred_gan_tpu_torch.serving import export_generator, load_generator
-from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters
+from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters, WGANHyperParameters
 from blurred_gan_tpu_torch.train.fast import ChunkRunner, chunk_indices
 from blurred_gan_tpu_torch.train.state import GAN, create_train_state
-from blurred_gan_tpu_torch.train.step import make_sample_fn, make_train_step
+from blurred_gan_tpu_torch.train.step import (
+    make_sample_fn, make_step_body, make_train_step, phase_shares)
 
 # The reference's measured CelebA-128 b32 throughput (TF on the CPU,
 # benchmarks/reference_baseline.py; BASELINE.md), the root script's
@@ -105,6 +115,24 @@ LOSS_KEYS = ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores", "re
 PEAK_FLOPS = (("H100 80GB HBM3", {torch.bfloat16: 989.4e12, torch.float32: 66.9e12}),)
 # The batch the FLOPs are counted at (times grad_accum), then scaled.
 FLOP_BATCH = 2
+
+
+class Arm(NamedTuple):
+    """One variant of ``--ablation``: the step's hyperparameter overrides,
+    whether the critic's loss has the penalty and its input the blur, and
+    the batch counter its windows start at."""
+
+    hparams: dict = {}
+    penalty: bool = True
+    blurred: bool = True
+    start: int = 0
+
+
+# benchmarks/step_ablation.py's variants. ``no_gen``'s generator step never
+# fires: its windows start past counter 0, so that only the critic-only
+# phase replays (the JAX script times from step 50 for the same reason).
+ABLATION = {"full": Arm(), "no_gen": Arm({"d_steps_per_g_step": 10 ** 9}, start=1),
+            "no_gp": Arm(penalty=False), "no_blur": Arm(blurred=False)}
 
 
 def peak_flops(device: torch.device, dtype: torch.dtype) -> Optional[float]:
@@ -229,20 +257,24 @@ def generator_flops_per_image(resolution: int = 128, latent_size: int = 100,
 def train_step_flops(resolution: int, hparams, upsample: str = "transpose") -> float:
     """FLOPs of one train step of ``hparams`` (its ``global_batch_size``): the
     plain blur, float32, on the CPU at ``FLOP_BATCH`` images a microbatch,
-    averaged over the steps of one period of the step's phases (lazy GP,
-    ``d_steps_per_g_step``) and scaled to the batch."""
+    one step of each phase the run takes (lazy GP, ``d_steps_per_g_step``)
+    weighted by its share of the run (``train.step.phase_shares``), scaled
+    to the batch."""
     batch = FLOP_BATCH * hparams.grad_accumulation_steps
     hp = replace(hparams, batch_size=batch, global_batch_size=batch)
     gan = GAN(celeba_generator(resolution, upsample=upsample),
               celeba_discriminator(resolution), blur_impl="torch")
     state = create_train_state(gan, hp, device="cpu")
-    step = make_train_step(gan, hp)
+    body = make_step_body(gan, hp)
     reals = torch.zeros((batch, resolution, resolution, 3))
-    period = math.lcm(hp.gp_every_n_steps, hp.d_steps_per_g_step)
-    total = sum(flop_counts(
-        lambda: [step(state, reals, torch.tensor(SIGMA0)) for _ in range(period)],
-        gan.generator, gan.discriminator).values())
-    return total / period * hparams.global_batch_size / batch
+    total = Fraction(0)
+    for (do_gp, do_gen), share in phase_shares(hp).items():
+        if share:
+            count = sum(flop_counts(
+                lambda: body(state, reals, torch.tensor(SIGMA0), do_gp=do_gp, do_gen=do_gen),
+                gan.generator, gan.discriminator).values())
+            total += share * count
+    return float(total) * hparams.global_batch_size / batch
 
 
 # --- the modes ----------------------------------------------------------------
@@ -296,9 +328,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="measure the device-resident chunked mode (dataset on the card, "
                         "CUDA-graph replay, one metrics fetch a chunk) instead of the "
                         "fixed-batch step")
+    p.add_argument("--ablation", action="store_true",
+                   help="time the train step's variants (benchmarks/step_ablation.py: full, "
+                        "no_gen, no_gp, no_blur) in turns: one line each, then summary_ms")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.ablation and (args.chunked or args.infer or args.infer_export):
+        p.error("--ablation times the fixed-batch step; it takes no other mode")
+    return args
 
 
 def wants_peak(args: argparse.Namespace, device: torch.device) -> bool:
@@ -307,18 +345,21 @@ def wants_peak(args: argparse.Namespace, device: torch.device) -> bool:
             and args.resolution is None)
 
 
-def make_gan(args, resolution: int, dtype: torch.dtype, blur_impl: str) -> GAN:
+def make_gan(args, resolution: int, dtype: torch.dtype, blur_impl: str,
+             blurred: bool = True) -> GAN:
     gen_kw = {"bn_dtype": dtype, "output_f32": False} if args.fast_gen else {}
     return GAN(celeba_generator(resolution, upsample=args.gen_upsample, compute_dtype=dtype,
                                 **gen_kw),
-               celeba_discriminator(resolution, compute_dtype=dtype), blurred=True,
+               celeba_discriminator(resolution, compute_dtype=dtype), blurred=blurred,
                blur_impl=blur_impl)
 
 
-def make_hparams(args, batch: int) -> BlurredWGANGPHyperParameters:
-    return BlurredWGANGPHyperParameters(
-        batch_size=batch, global_batch_size=batch, ema_decay=args.ema_decay,
-        gp_every_n_steps=args.gp_every, grad_accumulation_steps=args.grad_accum)
+def make_hparams(args, batch: int, arm: Arm = Arm()):
+    kw = dict(batch_size=batch, global_batch_size=batch, ema_decay=args.ema_decay,
+              grad_accumulation_steps=args.grad_accum, **arm.hparams)
+    if not arm.penalty:
+        return WGANHyperParameters(**kw)
+    return BlurredWGANGPHyperParameters(gp_every_n_steps=args.gp_every, **kw)
 
 
 def uniform_reals(batch: int, resolution: int, device) -> torch.Tensor:
@@ -343,25 +384,42 @@ def _windows_problems(what: str, warm: np.ndarray, windows: list) -> list:
     return problems
 
 
-def step_check(args, device, dtype, resolution: int, batch: int):
-    """One step through the kernel against one through the plain blur, from
-    the same initial state, draws, reals and σ₀. Returns (problems, the
-    largest relative difference, blur launches in the configured path's
-    step)."""
-    hp = make_hparams(args, batch)
+def start_state(gan: GAN, hp, device, arm: Arm, batch: int):
+    """A fresh state with its batch counter at ``arm.start``."""
+    state = create_train_state(gan, hp, device=device)
+    state.n_batches, state.n_img = arm.start, arm.start * batch
+    return state
+
+
+def step_check(args, device, dtype, resolution: int, batch: int, arm: Arm = Arm()):
+    """One step of ``arm`` through the kernel against one through the plain
+    blur, from the same initial state, draws, reals and σ₀, under
+    deterministic cuDNN: otherwise the bfloat16 step's float32 generator
+    products take algorithms whose sums vary from run to run, and the
+    bfloat16 critic's first Adam step turns that into a 2% spread of
+    ``gen_loss`` between two runs of one path (PERF.md §6). Returns
+    (problems, the largest relative difference, blur launches in the
+    configured path's step)."""
+    hp = make_hparams(args, batch, arm)
     reals = uniform_reals(batch, resolution, device)
     configured = args.blur_impl
     kernel = "cuda" if configured == "torch" else configured
     got, launches = {}, {}
-    for impl in dict.fromkeys((configured, kernel, "torch")):
-        gan = make_gan(args, resolution, dtype, impl)
-        state = create_train_state(gan, hp, device=device)
-        before = blur_cuda.launch_count
-        metrics, _ = make_train_step(gan, hp)(state, reals, torch.tensor(SIGMA0, device=device))
-        _sync(device)
-        launches[impl] = blur_cuda.launch_count - before
-        got[impl] = {k: float(metrics[k]) for k in LOSS_KEYS}
-        del gan, state, metrics
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for impl in dict.fromkeys((configured, kernel, "torch")):
+            gan = make_gan(args, resolution, dtype, impl, arm.blurred)
+            state = start_state(gan, hp, device, arm, batch)
+            before = blur_cuda.launch_count
+            metrics, _ = make_train_step(gan, hp)(state, reals,
+                                                  torch.tensor(SIGMA0, device=device))
+            _sync(device)
+            launches[impl] = blur_cuda.launch_count - before
+            got[impl] = {k: float(metrics[k]) for k in LOSS_KEYS}
+            del gan, state, metrics
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     tol = STEP_TOL[dtype]
     problems, worst = [], 0.0
     for k in LOSS_KEYS:
@@ -372,33 +430,42 @@ def step_check(args, device, dtype, resolution: int, batch: int):
     return problems, worst, launches[configured]
 
 
-def train_windows(args, device, dtype, resolution: int, batch: int, steps: int):
-    """The default mode at ``batch``: (rates, values of the warm-up, of each
-    window)."""
-    gan = make_gan(args, resolution, dtype, args.blur_impl)
-    hp = make_hparams(args, batch)
-    state = create_train_state(gan, hp, device=device)
+def fixed_batch_window(args, device, dtype, resolution: int, batch: int, steps: int,
+                       arm: Arm = Arm()):
+    """The default mode's windows of ``arm`` at ``batch``: ``window(rep)``
+    runs one, after rescaling the reals by 0.999 − 1e-3·rep (``rep`` None:
+    the warm-up, which captures on the card), and returns (its img/s, its
+    disc_loss values)."""
+    gan = make_gan(args, resolution, dtype, args.blur_impl, arm.blurred)
+    hp = make_hparams(args, batch, arm)
+    state = start_state(gan, hp, device, arm, batch)
     reals = uniform_reals(batch, resolution, device)
     runner = FixedBatchRunner(gan, hp, state, reals.cpu().numpy(), steps)
     idx = np.zeros((steps, batch), np.int32)
 
-    def window():
+    def window(rep: Optional[int] = None):
+        if rep is not None:
+            runner.data.copy_(reals * (0.999 - 1e-3 * rep))
+            _sync(device)
+        t0 = time.perf_counter()
         out = runner.run(idx, state.n_batches)
         # A copy: on the CPU, .cpu() is the runner's buffer itself.
         vals = np.array(out[:, runner.names.index("disc_loss")].cpu())
+        rate = steps * batch / (time.perf_counter() - t0)
         state.n_batches += steps
         state.n_img += steps * batch
-        return vals
+        return rate, vals
 
-    warm = window()  # captures on the card
-    rates, values = [], []
-    for rep in range(WINDOWS):
-        runner.data.copy_(reals * (0.999 - 1e-3 * rep))
-        _sync(device)
-        t0 = time.perf_counter()
-        values.append(window())
-        rates.append(steps * batch / (time.perf_counter() - t0))
-    return rates, warm, values
+    return window
+
+
+def train_windows(args, device, dtype, resolution: int, batch: int, steps: int):
+    """The default mode at ``batch``: (rates, values of the warm-up, of each
+    window)."""
+    window = fixed_batch_window(args, device, dtype, resolution, batch, steps)
+    warm = window()[1]
+    rates, values = zip(*(window(rep) for rep in range(WINDOWS)))
+    return list(rates), warm, list(values)
 
 
 def chunked_windows(args, device, dtype, resolution: int, batch: int, steps: int):
@@ -468,16 +535,67 @@ def infer_windows(args, device, dtype, resolution: int, batch: int, steps: int):
     return rates, warm, values, problems
 
 
-def bench(args: argparse.Namespace) -> dict:
-    """Run the mode ``args`` asks for; the output line as a dict."""
+def run_settings(args: argparse.Namespace):
+    """(device, resolution, batch, steps a window, compute dtype)."""
     device = setup_device(args.device)
     on_card = device.type == "cuda"
     if on_card and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     resolution, batch, steps = CARD_DEFAULTS if on_card else CPU_DEFAULTS
-    resolution = args.resolution or resolution
-    batch = args.batch or batch
     dtype = torch.float32 if args.f32 or not on_card else torch.bfloat16
+    return device, args.resolution or resolution, args.batch or batch, steps, dtype
+
+
+def ablation(args: argparse.Namespace) -> list:
+    """``--ablation``: each arm of :data:`ABLATION` captured as the default
+    mode's runner, step-checked (kernel against plain blur), warmed up, then
+    timed in turns, one window of each arm a round over ``WINDOWS`` rounds.
+    One line per arm, then the ``summary_ms`` line: each component's
+    marginal cost (``full`` minus the arm without it, as
+    benchmarks/step_ablation.py), each arm's median and its rounds'
+    spread."""
+    device, resolution, batch, steps, dtype = run_settings(args)
+    base = {"batch": batch, "resolution": resolution, "steps": steps,
+            "backend": f"torch-{device.type}", **device_fields(device),
+            "compute_dtype": str(dtype).removeprefix("torch.")}
+    lines, windows = {}, {}
+    for name, arm in ABLATION.items():
+        problems, step_err, launches = step_check(args, device, dtype, resolution, batch, arm)
+        lines[name] = dict({"variant": name}, **base, blur_launches_per_step=launches,
+                           step_check_max_rel_diff=step_err, problems=problems)
+        windows[name] = fixed_batch_window(args, device, dtype, resolution, batch, steps, arm)
+    warm = {name: window()[1] for name, window in windows.items()}
+    rates = {name: [] for name in ABLATION}
+    values = {name: [] for name in ABLATION}
+    for rep in range(WINDOWS):
+        for name, window in windows.items():
+            rate, vals = window(rep)
+            rates[name].append(rate)
+            values[name].append(vals)
+    ms = {}
+    for name, line in lines.items():
+        rate = statistics.median(rates[name])
+        ms[name] = round(batch / rate * 1e3, 3)
+        line["problems"] += _windows_problems(name, warm[name], values[name])
+        line.update({"ms_per_step": ms[name], "images_per_sec": round(rate, 1),
+                     "windows": [round(r, 2) for r in rates[name]],
+                     "correct": not line["problems"]})
+        if not line["problems"]:
+            del line["problems"]
+    spread = {name: round((batch / min(r) - batch / max(r)) * 1e3, 3) for name, r in rates.items()}
+    summary = {"summary_ms": {"full": ms["full"],
+                              "gen_step_marginal": round(ms["full"] - ms["no_gen"], 3),
+                              "gp_marginal": round(ms["full"] - ms["no_gp"], 3),
+                              "blur_marginal": round(ms["full"] - ms["no_blur"], 3),
+                              "median_ms": ms, "spread_ms": spread, "rounds": WINDOWS},
+               "correct": all(line["correct"] for line in lines.values())}
+    return [*lines.values(), summary]
+
+
+def bench(args: argparse.Namespace) -> dict:
+    """Run the mode ``args`` asks for; the output line as a dict."""
+    device, resolution, batch, steps, dtype = run_settings(args)
+    on_card = device.type == "cuda"
     out = {"backend": f"torch-{device.type}", **device_fields(device)}
     echoed = {"gen_upsample": args.gen_upsample != "transpose",
               "blur_impl": args.blur_impl != "auto", "fast_gen": args.fast_gen,
@@ -545,12 +663,16 @@ def bench(args: argparse.Namespace) -> dict:
     return out
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    out = bench(parse_args(argv))
-    print(json.dumps(out), flush=True)
-    if not out["correct"]:
+def main(argv: Optional[Sequence[str]] = None):
+    """Print the mode's line (``--ablation``: its lines, the summary last);
+    exit 1 where the last says ``"correct": false``. Returns the last."""
+    args = parse_args(argv)
+    lines = ablation(args) if args.ablation else [bench(args)]
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    if not lines[-1]["correct"]:
         sys.exit(1)
-    return out
+    return lines[-1]
 
 
 if __name__ == "__main__":

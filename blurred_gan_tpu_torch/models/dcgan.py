@@ -19,7 +19,16 @@ JAX package's dtype boundaries, not autocast's:
 
 - each Dense, Conv and ConvTranspose casts its input and its float32 weight
   (and bias) to ``compute_dtype`` and returns that dtype (flax's
-  ``promote_dtype``);
+  ``promote_dtype``; a Conv's bias is added to the rounded product, as
+  flax adds it), except the generator's products whose consumer
+  computes in float32 (``f32_sums``: the Dense and every up-stage, which feed
+  a float32 BatchNorm, and the last convolution when the tanh is float32):
+  those return the float32 sums of their ``compute_dtype`` operands, as the
+  JAX package's default compile keeps them (XLA's excess precision drops the
+  round trip through bfloat16 before a float32 consumer). The product then
+  runs in float32, exact for bfloat16 operands with TF32 off (the entry
+  points turn it off); its input and weight gradients are rounded to
+  ``compute_dtype`` as before;
 - BatchNorm computes its statistics and its normalise / scale / shift in
   float32 and casts only the result to its ``dtype`` (flax's ``_normalize``);
   the generator's ``bn_dtype`` defaults to float32;
@@ -66,15 +75,27 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
     return t if t is None else t.to(dtype)
 
 
+def _product(fn, x, w, *args, f32_sums: bool = False, **kw):
+    """``fn(x, w, *args, **kw)`` for operands already in the compute dtype;
+    with ``f32_sums`` and operands below float32, on their float32 values, so
+    that the result is the unrounded float32 sums."""
+    if f32_sums and x.dtype != torch.float32:
+        x, w = x.float(), w.float()
+        args = [_cast(a, torch.float32) if torch.is_tensor(a) else a for a in args]
+    return fn(x, w, *args, **kw)
+
+
 class SameConv2d(nn.Module):
     """flax ``nn.Conv(padding="SAME")``; weight (out, in, kh, kw). Computes
-    in ``compute_dtype``."""
+    in ``compute_dtype``; ``f32_sums``: returns float32 sums (module
+    docstring)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, f32_sums: bool = False):
         super().__init__()
         self.stride = stride
         self.compute_dtype = compute_dtype
+        self.f32_sums = f32_sums
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, KERNEL, KERNEL))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
@@ -83,19 +104,27 @@ class SameConv2d(nn.Module):
         ph = _same_pads(x.shape[2], KERNEL, self.stride)
         pw = _same_pads(x.shape[3], KERNEL, self.stride)
         x = F.pad(_cast(x, dt), (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, _cast(self.weight, dt), _cast(self.bias, dt), stride=self.stride)
+        w, b = _cast(self.weight, dt), _cast(self.bias, dt)
+        if b is None or dt == torch.float32:
+            return _product(F.conv2d, x, w, b, stride=self.stride, f32_sums=self.f32_sums)
+        # flax adds the bias to the product's result, in the compute dtype:
+        # below float32 that rounds twice, where a fused bias rounds once.
+        y = _product(F.conv2d, x, w, stride=self.stride, f32_sums=self.f32_sums)
+        return y + b.reshape(1, -1, 1, 1)
 
 
 class SameConvTranspose2d(nn.Module):
     """flax ``nn.ConvTranspose(padding="SAME")``, bias-free; weight (in, out,
     kh, kw) holding the spatially flipped flax kernel. Output is ``stride``
-    times the input size. Computes in ``compute_dtype``."""
+    times the input size. Computes in ``compute_dtype``; ``f32_sums`` as
+    :class:`SameConv2d`."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, f32_sums: bool = False):
         super().__init__()
         self.stride = stride
         self.compute_dtype = compute_dtype
+        self.f32_sums = f32_sums
         self.weight = nn.Parameter(torch.empty(in_ch, out_ch, KERNEL, KERNEL))
         self.register_parameter("bias", None)
 
@@ -103,8 +132,8 @@ class SameConvTranspose2d(nn.Module):
         dt = self.compute_dtype
         h, w = x.shape[2], x.shape[3]
         pad = KERNEL - 1 - _conv_transpose_pad_lo(KERNEL, self.stride)
-        y = F.conv_transpose2d(_cast(x, dt), _cast(self.weight, dt), stride=self.stride,
-                               padding=pad)
+        y = _product(F.conv_transpose2d, _cast(x, dt), _cast(self.weight, dt),
+                     stride=self.stride, padding=pad, f32_sums=self.f32_sums)
         return y[:, :, :self.stride * h, :self.stride * w]
 
 
@@ -187,16 +216,16 @@ def _leaky(x):
 class Upsample(nn.Module):
     """One generator up-stage: ConvTranspose(5x5, s), or for ``resize`` with
     ``s > 1`` nearest-neighbour ``s``x then Conv(5x5, s1). Bias-free; computes
-    in ``compute_dtype``."""
+    in ``compute_dtype``; ``f32_sums`` as :class:`SameConv2d`."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int, mode: str,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, f32_sums: bool = False):
         super().__init__()
         self.stride = stride
         self.resize = mode == "resize" and stride > 1
-        self.conv = (SameConv2d(in_ch, out_ch, 1, bias=False, compute_dtype=compute_dtype)
-                     if self.resize
-                     else SameConvTranspose2d(in_ch, out_ch, stride, compute_dtype=compute_dtype))
+        kw = dict(compute_dtype=compute_dtype, f32_sums=f32_sums)
+        self.conv = (SameConv2d(in_ch, out_ch, 1, bias=False, **kw) if self.resize
+                     else SameConvTranspose2d(in_ch, out_ch, stride, **kw))
 
     @property
     def flax_kind(self) -> str:
@@ -216,9 +245,12 @@ class DCGANGenerator(nn.Module):
 
     Train/eval mode (``.train()`` / ``.eval()``) switches BatchNorm between
     batch and running statistics, as flax's ``train`` flag does.
-    ``compute_dtype``: the Dense's and the convolutions'; ``bn_dtype``: the
-    BatchNorm outputs' (None: float32); ``output_f32``: tanh on a float32 cast
-    of the last convolution (False: in ``compute_dtype``).
+    ``compute_dtype``: the Dense's and the convolutions' operands;
+    ``bn_dtype``: the BatchNorm outputs' (None: float32); ``output_f32``: tanh
+    on a float32 cast of the last convolution (False: in ``compute_dtype``).
+    The Dense and the up-stages feed a float32 BatchNorm and so return their
+    float32 sums, and so does the last convolution under ``output_f32``
+    (module docstring).
     """
 
     def __init__(self, latent_size: int = 100, init_hw: Tuple[int, int] = (4, 4),
@@ -240,24 +272,26 @@ class DCGANGenerator(nn.Module):
         bn_dtype = bn_dtype or torch.float32
         h0, w0 = self.init_hw
         self.dense = nn.Linear(latent_size, h0 * w0 * init_features, bias=False)
+        self.f32_sums = True  # the Dense's; each convolution has its own
         self.dense_bn = BatchNorm(h0 * w0 * init_features, dtype=bn_dtype)
         ups, bns, ch = [], [], init_features
         for features, stride in blocks:
-            ups.append(Upsample(ch, features, stride, upsample, compute_dtype))
+            ups.append(Upsample(ch, features, stride, upsample, compute_dtype, f32_sums=True))
             bns.append(BatchNorm(features, dtype=bn_dtype))
             ch = features
         self.ups = nn.ModuleList(ups)
         self.bns = nn.ModuleList(bns)
-        self.final = (Upsample(ch, out_channels, final_stride, upsample, compute_dtype)
+        final_kw = dict(compute_dtype=compute_dtype, f32_sums=output_f32)
+        self.final = (Upsample(ch, out_channels, final_stride, upsample, **final_kw)
                       if final_transpose
-                      else SameConv2d(ch, out_channels, final_stride, bias=False,
-                                      compute_dtype=compute_dtype))
+                      else SameConv2d(ch, out_channels, final_stride, bias=False, **final_kw))
         init_weights(self, generator)
 
     def forward(self, z):
         h0, w0 = self.init_hw
         dt = self.compute_dtype
-        x = _leaky(self.dense_bn(F.linear(_cast(z, dt), _cast(self.dense.weight, dt))))
+        x = _leaky(self.dense_bn(_product(F.linear, _cast(z, dt), _cast(self.dense.weight, dt),
+                                          f32_sums=self.f32_sums)))
         # flax reshapes the Dense output as NHWC; NCHW from there on.
         x = x.reshape(x.shape[0], h0, w0, self.init_features).permute(0, 3, 1, 2)
         for up, bn in zip(self.ups, self.bns):

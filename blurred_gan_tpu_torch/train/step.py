@@ -104,6 +104,7 @@ evaluation, with the live weights or their average.
 from __future__ import annotations
 
 import math
+from fractions import Fraction
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -137,10 +138,33 @@ def step_phase(hparams, n_batches: int) -> Phase:
             n_batches % _every(hparams, "d_steps_per_g_step") == 0)
 
 
+def phase_shares(hparams) -> Dict[Phase, Fraction]:
+    """The share of a run's steps that each phase takes, in closed form (no
+    loop over a period, which for ``d_steps_per_g_step = 10**9`` is a
+    billion counters): of ``P = lcm(g, d)`` steps (``g`` the penalty's
+    period, 1 without it; ``d`` the generator's), the multiples of both are
+    ``P/P``, of ``g`` alone ``P/g − 1``, of ``d`` alone ``P/d − 1``, of
+    neither the rest. A phase no counter takes has share 0."""
+    use_gp = getattr(hparams, "gp_coefficient", None) is not None
+    g = _every(hparams, "gp_every_n_steps") if use_gp else 1
+    d = _every(hparams, "d_steps_per_g_step")
+    both = Fraction(1, math.lcm(g, d))
+    shares: Dict[Phase, Fraction] = {}
+    for (gp, gen), share in (((True, True), both), ((True, False), Fraction(1, g) - both),
+                             ((False, True), Fraction(1, d) - both),
+                             ((False, False), 1 - Fraction(1, g) - Fraction(1, d) + both)):
+        phase = (use_gp and gp, gen)
+        shares[phase] = shares.get(phase, Fraction(0)) + share
+    return shares
+
+
 def reachable_phases(hparams) -> List[Phase]:
-    """Every phase a run of ``hparams`` takes, the full step first."""
-    period = math.lcm(_every(hparams, "gp_every_n_steps"), _every(hparams, "d_steps_per_g_step"))
-    return sorted({step_phase(hparams, n) for n in range(period)}, reverse=True)
+    """Every phase a run of ``hparams`` takes, the full step first: ``(use_gp,
+    True)`` at counter 0; ``(True, False)`` iff the penalty is on and ``d``
+    does not divide ``g``; ``(False, True)`` iff it is on and ``g`` does not
+    divide ``d``; ``(False, False)`` iff ``d > 1`` and either ``g > 1`` or
+    the penalty is off (:func:`phase_shares`)."""
+    return sorted((p for p, share in phase_shares(hparams).items() if share), reverse=True)
 
 
 def random_hflip(images: torch.Tensor, generator: Optional[torch.Generator] = None,

@@ -86,7 +86,8 @@ Phases, each of which raises on failure:
     launches a step, the networks' dtypes read by forward hooks); one step
     with the kernel against one with the plain blur; the bfloat16 step
     against the float32 step from the same weights and draws (relative
-    differences of the losses and of the critic's gradient norm); 10 chunked
+    differences of the losses and of the critic's gradient norm), these
+    first steps under deterministic cuDNN; 10 chunked
     steps against 10 of ``fit`` under deterministic cuDNN, bit-equal; then,
     in turns, chunked and ``fit`` images/s of float32, ``--bf16`` and
     ``--bf16 --fast_gen``, capture seconds, the graphs' pools and ``fit``'s
@@ -147,7 +148,8 @@ Phases, each of which raises on failure:
     ``random_inception_params``, its npz loaded on the card giving the source
     parameters' features;
 18. the bench: ``python -m blurred_gan_tpu_torch.bench`` in a process of its
-    own for each of the default (bfloat16, with the b128 peak), ``--f32``,
+    own for each of the default (bfloat16, with the b128 peak), ``--f32
+    --no_peak`` (its b128 peak cut to pay for ``--ablation``),
     ``--f32 --blur_impl torch --no_peak`` (the plain blur's A/B at b32; its
     b128 peak was cut to pay for phase 19's scoring), ``--f32 --chunked``,
     ``--infer`` and
@@ -155,7 +157,11 @@ Phases, each of which raises on failure:
     ``correct`` true, the card's name as this script reads it, 6 blur
     launches a step and some in the timed runs with the kernel and none
     without, one ``flops_per_step`` for the train arms and one for the infer
-    arms; ``--f32 --chunked``'s rate beside phase 10's;
+    arms; ``--f32 --chunked``'s rate beside phase 10's; then ``--ablation
+    --no_peak`` (bfloat16, b32): four arm lines (``full``, ``no_gen``,
+    ``no_gp``, ``no_blur``), each correct with 6 / 4 / 3 / 0 blur launches an
+    eager step, and the ``summary_ms`` line, its marginals ``full`` minus
+    each arm;
 19. the quality check's train side: ``quality.train`` in this process on
     ``mnist`` (3,200 examples, float32), ``celeba64_sharp --bf16`` (640) and
     the heavy-blur ``celeba64`` (640, float32, σ₀ 5, where the blur is no
@@ -165,10 +171,12 @@ Phases, each of which raises on failure:
     none; 1000 finite samples NHWC in [-1, 1] and a meta with
     ``train_ours``'s keys and the card; each run's img/s; the kernel at 64²
     (192 and 96 planes, σ 0.05 and 5) against its plain version and bound;
-    each run's 1000 samples scored on the card by ``quality.evaluate`` in
-    this process: the reals floor row and the set's, finite, with
-    ``evaluate``'s keys and ``"stack": "torch-cuda"``, the floor's SWD and
-    both FIDs below the set's, each row and its seconds logged;
+    the sharp run's 1000 samples scored on the card by
+    ``quality.evaluate`` in this process (the other two runs' scoring cut to
+    pay for phase 18's ``--ablation``): the reals floor row and the set's,
+    finite, with ``evaluate``'s keys and ``"stack": "torch-cuda"``, the
+    floor's SWD and both FIDs below the set's, each row and its seconds
+    logged; the bfloat16 run and its plain run under deterministic cuDNN;
     then one JSON line describing the kernel and the result line.
 
 The last line of output is ``{"ok": true, "device": {...}}``; nothing is
@@ -288,17 +296,23 @@ DIAG_INCEPTION_BATCH, DIAG_INCEPTION_TOL = 8, dict(rtol=1e-4, atol=1e-4)
 # Phase 18: the bench's invocations, each a process of its own, one after
 # another, with the blur launches of one eager step each must read; a run's
 # time limit.
-BENCH_RUNS = (("default", [], 6), ("f32", ["--f32"], 6),
+BENCH_RUNS = (("default", [], 6), ("f32", ["--f32", "--no_peak"], 6),
               ("f32_torch", ["--f32", "--blur_impl", "torch", "--no_peak"], 0),
               ("f32_chunked", ["--f32", "--chunked"], 6), ("infer", ["--infer"], 0),
               ("infer_export", ["--infer_export"], 0))
 BENCH_TIMEOUT = 300.0
+# ``bench --ablation``'s arms and the blur launches of one eager step of each.
+ABLATION_LAUNCHES = {"full": 6, "no_gen": 4, "no_gp": 3, "no_blur": 0}
 # Phase 19: the quality check's runs (configuration, examples, arm), seed 0;
 # the keys of the meta that benchmarks/quality_parity.py train_ours writes for
 # a plain run, and the device's fields the port adds; the 64² blur timings'
 # σ (the sharp and the heavy-blur surfaces' σ₀).
 QUALITY_RUNS = (("mnist", 3200, {}), ("celeba64_sharp", 640, {"bf16": True}),
                 ("celeba64", 640, {}))
+# The run scored on the card (~50 s for its two rows, most of it the FIDs'
+# host sqrtm; the MNIST and heavy-blur runs' scoring was cut to pay for phase
+# 18's --ablation).
+QUALITY_SCORED = ("celeba64_sharp",)
 TRAIN_OURS_META = {"framework", "config", "seed", "examples", "backend", "ema_decay",
                    "compute_dtype", "images_per_sec", "elapsed_s"}
 QUALITY_META = TRAIN_OURS_META | {"device", "power_limit_w"}
@@ -1516,8 +1530,10 @@ def recorded_dtypes(gan):
 def expected_dtypes(flags):
     low = "bfloat16" if flags.get("bf16") else "float32"
     fast = "bfloat16" if flags.get("fast_gen") and flags.get("bf16") else "float32"
-    return {"first conv": {low}, "BatchNorm": {fast}, "fakes": {fast}, "critic conv": {low},
-            "scores": {"float32"}}
+    # The generator's first convolution feeds a float32 BatchNorm: its sums
+    # stay float32 under --bf16 (models/dcgan.py's f32_sums).
+    return {"first conv": {"float32"}, "BatchNorm": {fast}, "fakes": {fast},
+            "critic conv": {low}, "scores": {"float32"}}
 
 
 @contextlib.contextmanager
@@ -1539,6 +1555,161 @@ def recorded_critic_grad_norms(state):
         yield norms
     finally:
         step_mod._apply = apply
+
+
+class _Float32Sums:
+    """``torch.nn.functional`` whose convolutions and dense product, given
+    bfloat16 operands, return their float32 sums unrounded: a copy of the
+    ``--mode generator_f32_sums`` harness of ``tests/torch_tpu_precision.py``
+    that the card's ``celeba64_sharp --bf16`` quality runs trained under
+    before ``--bf16`` kept those sums itself (``models/dcgan.py``'s
+    ``f32_sums``)."""
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    @staticmethod
+    def _f32(fn, x, w, *args, **kw):
+        if x.dtype != torch.bfloat16:
+            return fn(x, w, *args, **kw)
+        return fn(x.float(), w.float(), *[a.float() if torch.is_tensor(a) else a for a in args],
+                  **kw)
+
+    def conv2d(self, x, w, bias=None, **kw):
+        return self._f32(torch.nn.functional.conv2d, x, w, bias, **kw)
+
+    def conv_transpose2d(self, x, w, *args, **kw):
+        return self._f32(torch.nn.functional.conv_transpose2d, x, w, *args, **kw)
+
+    def linear(self, x, w, bias=None):
+        return self._f32(torch.nn.functional.linear, x, w, bias)
+
+
+@contextlib.contextmanager
+def harness_f32_sums():
+    """Inside, every generator forward runs with :class:`_Float32Sums` (the
+    harness's ``generator_f32_sums``; TF32 off, as the entry points run)."""
+    from blurred_gan_tpu_torch.models import dcgan
+
+    forward = dcgan.DCGANGenerator.forward
+
+    def gen_forward(self, z):
+        functional, dcgan.F = dcgan.F, _Float32Sums()
+        try:
+            return forward(self, z)
+        finally:
+            dcgan.F = functional
+
+    dcgan.DCGANGenerator.forward = gen_forward
+    try:
+        yield
+    finally:
+        dcgan.DCGANGenerator.forward = forward
+
+
+def rounding_generator(generator):
+    """``generator`` as ``--bf16`` ran before its products kept their float32
+    sums: every product's result rounded to bfloat16."""
+    for m in generator.modules():
+        if hasattr(m, "f32_sums"):
+            m.f32_sums = False
+    return generator
+
+
+def bf16_landing_step(workdir, reals):
+    """Phase 13g: one ``--bf16`` step through the entry point's trainer
+    against the same step of a trainer whose generator rounds every product
+    (:func:`rounding_generator`) run inside the harness the card's quality runs
+    used (:func:`harness_f32_sums`), from the same weights, draws and reals
+    under deterministic cuDNN: the losses and every state tensor bit-equal.
+    The rounding generator outside the harness differs (the check can
+    tell). Returns the largest loss difference of that one."""
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name in ("landed", "harness", "rounding"):
+            trainer, _ = build_trainer(smoke_args(os.path.join(workdir, f"landing_{name}"),
+                                                  bf16=True), feeders=[])
+            if name != "landed":
+                rounding_generator(trainer.gan.generator)
+            with harness_f32_sums() if name == "harness" else contextlib.nullcontext():
+                metrics, _ = trainer.step_fn(trainer.state, reals, SIGMA0)
+            torch.cuda.synchronize()
+            out[name] = ({k: float(v) for k, v in metrics.items()},
+                         {k: (v.clone() if torch.is_tensor(v) else v)
+                          for k, v in state_tensors(trainer.state).items()})
+            trainer.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (landed, landed_state), (harness, harness_state) = out["landed"], out["harness"]
+    unequal = [k for k in landed if landed[k] != harness[k]] + [
+        k for k, v in landed_state.items()
+        if not (torch.equal(v, harness_state[k]) if torch.is_tensor(v) else v == harness_state[k])]
+    if unequal:
+        raise RuntimeError(f"phase 13: the landed --bf16 step differs from the rounding "
+                           f"generator's inside the harness in {unequal[:10]}")
+    rounding = out["rounding"][0]
+    apart = max(abs(rounding[k] - landed[k]) for k in ("disc_loss", "gen_loss"))
+    if apart == 0.0:
+        raise RuntimeError("phase 13: the rounding generator's step equals the landed one")
+    log(f"[bf16] landed --bf16 step (the generator's float32 sums) against the rounding "
+        f"generator inside tests/torch_tpu_precision.py's former generator_f32_sums harness, "
+        f"deterministic cuDNN: losses and {len(landed_state)} state tensors bit-equal "
+        f"(d_loss {landed['disc_loss']:+.8f}, gen_loss {landed['gen_loss']:+.8f}); the rounding "
+        f"generator alone {apart:.3e} away")
+    return apart
+
+
+def bf16_landing_rates(card):
+    """Phase 13h: bench's fixed-batch step (``bench.fixed_batch_window``:
+    CelebA-128, b32, a CUDA graph replayed 50 steps a window) for ``--bf16``
+    and ``--bf16 --fast_gen``, the generator with its float32 sums (landed)
+    and rounding every product (before), one window of each in turns over
+    ``bench.WINDOWS`` rounds after a warm-up. Returns the medians by
+    configuration."""
+    from blurred_gan_tpu_torch import bench
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    res, batch, steps = bench.CARD_DEFAULTS
+    make_gan, windows = bench.make_gan, {}
+
+    def rounded(*args, **kw):
+        gan = make_gan(*args, **kw)
+        rounding_generator(gan.generator)
+        return gan
+
+    try:
+        for flags in ([], ["--fast_gen"]):
+            args = bench.parse_args(flags)
+            for sums in (True, False):
+                bench.make_gan = make_gan if sums else rounded
+                windows[" ".join(["--bf16", *flags]), sums] = bench.fixed_batch_window(
+                    args, device, torch.bfloat16, res, batch, steps)
+    finally:
+        bench.make_gan = make_gan
+    for window in windows.values():
+        window()
+    order = list(windows)
+    rates = {key: [] for key in order}
+    for rep in range(bench.WINDOWS):
+        for key in (order if rep % 2 == 0 else order[::-1]):
+            rates[key].append(windows[key](rep)[0])
+    out = {}
+    for flags in dict.fromkeys(k[0] for k in order):
+        landed, before = (statistics.median(rates[flags, s]) for s in (True, False))
+        out[flags] = {"landed_img_per_s": landed, "before_img_per_s": before,
+                      "landed_runs": rates[flags, True], "before_runs": rates[flags, False]}
+        log(f"[bf16] bench {flags} (b{batch}, {res}², windows of {steps} replayed steps in "
+            f"turns): the generator's float32 sums {landed:.2f} img/s "
+            f"({batch / landed * 1e3:.3f} ms/step; runs "
+            f"{', '.join(f'{r:.1f}' for r in rates[flags, True])}) against rounding "
+            f"{before:.2f} img/s ({batch / before * 1e3:.3f} ms/step; runs "
+            f"{', '.join(f'{r:.1f}' for r in rates[flags, False])}): "
+            f"{landed / before:.3f}x on {card}")
+    del windows
+    return out
 
 
 def bf16_fit(blur_cuda, workdir, name, flags):
@@ -1573,21 +1744,28 @@ def bf16_fit(blur_cuda, workdir, name, flags):
 
 def bf16_first_steps(workdir, reals):
     """Phase 13b/c: the first step of fresh entry-point trainers from the
-    same weights and draws: each bfloat16 configuration with the kernel and
-    with the plain blur, and float32 with the kernel. Returns
-    ``{(name, impl): (losses, critic gradient norm)}``."""
+    same weights and draws, under deterministic cuDNN (the bfloat16 step's
+    float32 generator products vary from run to run otherwise, and its
+    bfloat16 critic turns that into a 2% spread of ``gen_loss`` between two
+    runs of one path, PERF.md §6): each bfloat16 configuration with
+    the kernel and with the plain blur, and float32 with the kernel.
+    Returns ``{(name, impl): (losses, critic gradient norm)}``."""
     from blurred_gan_tpu_torch.train_celeba import build_trainer
 
     out = {}
-    for name, flags in PRECISIONS:
-        for impl in (("cuda",) if name == "float32" else ("cuda", "torch")):
-            trainer, _ = build_trainer(smoke_args(os.path.join(workdir, f"first_{name}_{impl}"),
-                                                  **flags), feeders=[])
-            trainer.gan.blur_impl = impl
-            with recorded_critic_grad_norms(trainer.state) as norms:
-                metrics, _ = trainer.step_fn(trainer.state, reals, SIGMA0)
-                out[name, impl] = ({k: float(v) for k, v in metrics.items()}, norms[0])
-            trainer.close()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, flags in PRECISIONS:
+            for impl in (("cuda",) if name == "float32" else ("cuda", "torch")):
+                trainer, _ = build_trainer(smoke_args(
+                    os.path.join(workdir, f"first_{name}_{impl}"), **flags), feeders=[])
+                trainer.gan.blur_impl = impl
+                with recorded_critic_grad_norms(trainer.state) as norms:
+                    metrics, _ = trainer.step_fn(trainer.state, reals, SIGMA0)
+                    out[name, impl] = ({k: float(v) for k, v in metrics.items()}, norms[0])
+                trainer.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
     return out
 
 
@@ -1705,6 +1883,10 @@ def run_bf16(blur_cuda, dataset, workdir, card, f32_default):
     fit_launches = {name: bf16_fit(blur_cuda, workdir, name, flags)
                     for name, flags in PRECISIONS[1:]}
     check_bf16_steps(bf16_first_steps(workdir, reals))
+    landing = {"rounding_loss_apart": bf16_landing_step(workdir, reals),
+               "bench": bf16_landing_rates(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
     templates = {name: precision_template(flags) for name, flags in PRECISIONS}
     records = {"float32": f32_default}
     for name, _ in PRECISIONS[1:]:
@@ -1770,6 +1952,7 @@ def run_bf16(blur_cuda, dataset, workdir, card, f32_default):
     gc.collect()
     torch.cuda.empty_cache()
     non_jax_check()
+    out["landing"] = landing
     return out
 
 
@@ -2967,6 +3150,44 @@ def run_bench(workdir, chunked_rate, card):
     return lines
 
 
+def run_ablation(workdir, card):
+    """Phase 18 (b): ``python -m blurred_gan_tpu_torch.bench --ablation
+    --no_peak`` (bfloat16, b32) in a process of its own: four arm lines,
+    each correct (its kernel step against the plain blur's) with
+    ``ABLATION_LAUNCHES`` blur launches an eager step on this card, then the
+    ``summary_ms`` line, whose marginals are ``full`` minus each arm.
+    Returns the lines."""
+    argv = ["-m", "blurred_gan_tpu_torch.bench", "--ablation", "--no_peak"]
+    rc, output, seconds = run_processes({"ablation": (argv, HERE, None)}, workdir,
+                                        timeout=BENCH_TIMEOUT, what="phase 18")["ablation"]
+    if rc != 0:
+        raise RuntimeError(f"phase 18, bench --ablation: exit code {rc}\n{output[-3000:]}")
+    lines = [json.loads(line) for line in output.splitlines()
+             if line.startswith(('{"variant"', '{"summary_ms"'))]
+    arms, summary = lines[:-1], lines[-1]
+    for line in lines:
+        log(f"[bench] --ablation: {json.dumps(line)}")
+    got = {a["variant"]: a["blur_launches_per_step"] for a in arms}
+    bad = [a["variant"] for a in arms
+           if a["correct"] is not True or not card.startswith(a["device"])]
+    if got != ABLATION_LAUNCHES or bad or "summary_ms" not in summary or not summary["correct"]:
+        raise RuntimeError(f"phase 18, bench --ablation: launches {got} (want "
+                           f"{ABLATION_LAUNCHES}), arms not correct or off {card}: {bad}, "
+                           f"summary {summary}")
+    ms = {a["variant"]: a["ms_per_step"] for a in arms}
+    s = summary["summary_ms"]
+    for key, arm in (("gen_step_marginal", "no_gen"), ("gp_marginal", "no_gp"),
+                     ("blur_marginal", "no_blur")):
+        if s[key] != round(ms["full"] - ms[arm], 3):
+            raise RuntimeError(f"phase 18, bench --ablation: {key} {s[key]} is not full "
+                               f"{ms['full']} minus {arm} {ms[arm]}")
+    log(f"[bench] --ablation, {seconds:.1f} s: full {s['full']:.3f} ms/step; marginal ms of "
+        f"the generator step {s['gen_step_marginal']:.3f}, the penalty {s['gp_marginal']:.3f}, "
+        f"the blur {s['blur_marginal']:.3f} (medians of {s['rounds']} rounds in turns; rounds' "
+        f"spread {json.dumps(s['spread_ms'])}) on {card}")
+    return {"arms": arms, "summary": summary, "seconds": seconds}
+
+
 def quality_run(blur_cuda, workdir, config, examples, flags, plain=False):
     """One ``quality.train`` run in this process, seed 0, with the blur
     kernel's launches counted by step (``plain``: the plain blur). Returns
@@ -3047,6 +3268,9 @@ def run_quality(blur_cuda, blur_matrix, device, workdir, card):
     runs = []
     for config, examples, flags in QUALITY_RUNS:
         cfg, what = quality.CONFIGS[config], f"phase 19, {config} {flags}"
+        # A bfloat16 run and its one-step plain run under deterministic cuDNN,
+        # as phase 13's first steps (bf16_first_steps).
+        torch.backends.cudnn.deterministic = bool(flags.get("bf16"))
         meta, trainer, per_step, launches, seconds = quality_run(
             blur_cuda, workdir, config, examples, flags)
         steps = examples // BATCH
@@ -3065,6 +3289,7 @@ def run_quality(blur_cuda, blur_matrix, device, workdir, card):
                                        meta, card, what)
         _, plain_trainer, plain_steps, plain_launches, _ = quality_run(
             blur_cuda, workdir, config, BATCH, flags, plain=True)
+        torch.backends.cudnn.deterministic = False
         if plain_steps != [0] or plain_launches != 0:
             raise RuntimeError(f"{what}: the plain run launched the kernel {plain_launches} "
                                f"times")
@@ -3084,8 +3309,8 @@ def run_quality(blur_cuda, blur_matrix, device, workdir, card):
             f"{tol['rtol']} (largest relative difference {rel:.2e}); 1000 samples "
             f"{cfg.image_shape} in [-1, 1], std {spread:.4f}; "
             f"{meta['images_per_sec']:.1f} img/s in fit, the run {seconds:.1f} s on {card}")
-        score = score_quality_set(quality, cfg, os.path.join(workdir, "quality", config),
-                                  prefix, what, card)
+        score = (score_quality_set(quality, cfg, os.path.join(workdir, "quality", config),
+                                   prefix, what, card) if config in QUALITY_SCORED else None)
         runs.append({"config": config, "prefix": prefix, "examples": examples,
                      "launches": launches, "launches_per_step": 6,
                      "images_per_sec": meta["images_per_sec"], "seconds": seconds,
@@ -3176,6 +3401,7 @@ def main():
             diagnostics = run_diagnostics(blur_cuda, blur_matrix, full_args, workdir, card)
         with phase("18 bench"):
             bench = run_bench(workdir, chunked_rate, card)
+            bench["ablation"] = run_ablation(workdir, card)
         with phase("19 quality"):
             quality = run_quality(blur_cuda, blur_matrix, device, workdir, card)
 
@@ -3223,6 +3449,64 @@ def data_parallel_only():
     print(json.dumps({"parallel": parallel}), flush=True)
 
 
+def bf16_ablation_only():
+    """``chip_smoke.py --bf16_ablation``: the build, phase 13's landed --bf16
+    step and its bench timings, and phase 18's ``bench --ablation`` alone."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch finds no CUDA device")
+    from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
+    from blurred_gan_tpu_torch.entry import card_line, set_float32_precision
+    from blurred_gan_tpu_torch.ops import blur_cuda
+
+    card = card_line()
+    log(card)
+    set_float32_precision()
+    blur_cuda.build()
+    dataset = synthetic_dataset((RES, RES, 3), num_examples=NUM_EXAMPLES)
+    reals = torch.from_numpy(next(dataset.batches(BATCH, seed=1))).to("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        with phase("13 landed bf16"):
+            landing = {"rounding_loss_apart": bf16_landing_step(workdir, reals),
+                       "bench": bf16_landing_rates(card)}
+        with phase("18 bench --ablation"):
+            ablation = run_ablation(workdir, card)
+    print(json.dumps({"landing": landing, "ablation": ablation}), flush=True)
+
+
+def first_step_only(root):
+    """``chip_smoke.py --first_step <root>``: the build and phase 4's first
+    float32 step through the entry point's trainer, from the package under
+    ``root`` (another checkout, to hold two trees to the same step in one
+    call), under deterministic cuDNN: one JSON line of its losses (as
+    float.hex) and a SHA-256 of every state tensor after it."""
+    import hashlib
+
+    sys.path.insert(0, os.path.abspath(root))
+    import blurred_gan_tpu_torch
+    from blurred_gan_tpu_torch.entry import set_float32_precision
+    from blurred_gan_tpu_torch.ops import blur_cuda
+    from blurred_gan_tpu_torch.train_celeba import build_trainer
+
+    set_float32_precision()
+    blur_cuda.build()
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        trainer, _ = build_trainer(smoke_args(os.path.join(workdir, "first"), sample_grid_every=0,
+                                              checkpoint_every=0, save_image_summaries_interval=0),
+                                   feeders=[])
+        reals = torch.from_numpy(next(trainer.dataset.batches(BATCH, seed=1))).to("cuda")
+        metrics, _ = trainer.step_fn(trainer.state, reals, SIGMA0)
+        digest = hashlib.sha256()
+        for k, v in sorted(state_tensors(trainer.state).items()):
+            digest.update(k.encode())
+            digest.update(v.detach().cpu().numpy().tobytes() if torch.is_tensor(v)
+                          else str(v).encode())
+        trainer.close()
+    print(json.dumps({"package": os.path.dirname(blurred_gan_tpu_torch.__file__),
+                      "losses": {k: float(v).hex() for k, v in sorted(metrics.items())},
+                      "state_sha256": digest.hexdigest()}), flush=True)
+
+
 def quality_only():
     """``chip_smoke.py --quality``: the build and phase 19 alone."""
     if not torch.cuda.is_available():
@@ -3250,5 +3534,9 @@ if __name__ == "__main__":
         data_parallel_only()
     elif sys.argv[1:] == ["--quality"]:
         quality_only()
+    elif sys.argv[1:] == ["--bf16_ablation"]:
+        bf16_ablation_only()
+    elif sys.argv[1:2] == ["--first_step"] and len(sys.argv) == 3:
+        first_step_only(sys.argv[2])
     else:
         main()

@@ -25,6 +25,7 @@ from torch_variant_harness import (
     B, LOSS, PARAM_TOL, SIGMA, assert_bn_stats_close, assert_grads_close, assert_params_close,
     assert_post_step_close, jax_grads, jax_run, port_run, reals_batches, torch_gan)
 from torch_variant_harness import hparams as port_hparams
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 K = 2
 

@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from blurred_gan_tpu.ops.blur_pallas import _pallas_impl
 from blurred_gan_tpu_torch.ops import blur_cuda
 from blurred_gan_tpu_torch.ops.blur import blur_matrix
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 FWD = dict(rtol=1e-5, atol=1e-6)
 # The 3-tap floor, σ = 2, the run's σ₀ = 5, the clip to the full width.

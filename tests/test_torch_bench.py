@@ -30,6 +30,7 @@ from blurred_gan_tpu_torch.ops import blur_cuda
 from blurred_gan_tpu_torch.train.state import create_train_state
 from blurred_gan_tpu_torch.train.step import make_train_step
 from torch_flop_gap import port_forwards, xla_flops, xla_forwards
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ROOT_BENCH = pathlib.Path(__file__).resolve().parents[1] / "bench.py"
 RES, BATCH, STEPS = 8, 2, 2
@@ -62,17 +63,6 @@ def output_keys(fn):
                         and t.value.id == "out" and isinstance(t.slice, ast.Constant)):
                     assigned.add(t.slice.value)
     return literal, assigned
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module: the runs are thousands of small
-    ops, which a worker's default thread pool, contending for the cores with
-    the suite's other workers, slowed tenfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def narrow_generator(resolution, latent_size=100, upsample="transpose",
@@ -121,7 +111,8 @@ def test_flags_are_the_root_scripts():
     assert "--gen_gate" in root and len(root) > 10
     args = bench.parse_args([])
     parser_flags = {f"--{k}" for k in vars(args)}
-    assert parser_flags == (root - {"--gen_gate"}) | {"--device"}
+    # --ablation: benchmarks/step_ablation.py, a mode here, not a second script.
+    assert parser_flags == (root - {"--gen_gate"}) | {"--device", "--ablation"}
     assert args.device == "cuda" and args.blur_impl == "auto"
     with pytest.raises(SystemExit):  # the port's names: cuda / torch for pallas / einsum
         bench.parse_args(["--blur_impl", "pallas"])

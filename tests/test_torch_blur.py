@@ -29,6 +29,7 @@ from blurred_gan_tpu.ops.blur_pallas import _pallas_impl, blur_images_pallas
 from blurred_gan_tpu_torch.models.layers import GaussianBlur
 from blurred_gan_tpu_torch.ops import blur as tb
 from blurred_gan_tpu_torch.ops import blur_cuda
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)

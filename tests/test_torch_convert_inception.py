@@ -29,6 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
                                 "tools"))
 
 import convert_inception as jci  # noqa: E402  (the root tool)
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 FOLD_TOL = dict(rtol=2e-6, atol=1e-7)
 

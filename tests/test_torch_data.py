@@ -16,6 +16,7 @@ from blurred_gan_tpu.sched.blur import BlurDecayController as JaxBlurDecayContro
 from blurred_gan_tpu.sched.blur import ExponentialDecaySchedule as JaxExponentialDecaySchedule
 from blurred_gan_tpu_torch.data import pipeline as tp
 from blurred_gan_tpu_torch.sched.blur import BlurDecayController, ExponentialDecaySchedule
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def take(pipe, n):

@@ -62,6 +62,7 @@ sys.path.insert(0, str(REPO / "benchmarks"))
 
 import diagnose_samples as jds  # noqa: E402  (the root tool)
 import quality_parity as qp  # noqa: E402
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 GRIDS = REPO / "results" / "quality" / "heavy64" / "grids"
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -28,6 +28,7 @@ from test_torch_fast import micro_gan
 from torch_variant_harness import (
     PARAM_TOL, SIGMA, assert_params_close, jax_run, named, port_run, reals_batches, torch_gan)
 from torch_variant_harness import hparams as port_hparams
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 DECAY = 0.9  # aggressive, so that a few steps move the average measurably
 

@@ -39,6 +39,7 @@ from blurred_gan_tpu_torch.train.loop import MetricFeeder, Trainer, TrainerConfi
 from blurred_gan_tpu_torch.train.state import GAN, create_train_state, set_capturable
 from blurred_gan_tpu_torch.metrics.swd import SWDMetric
 from blurred_gan_tpu_torch.utils import logging as logging_mod
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 PARAM_TOL = dict(rtol=5e-4, atol=5e-5)  # tests/test_fast.py's chunked-vs-host tolerance
 

@@ -33,6 +33,7 @@ from blurred_gan_tpu_torch.tools import make_shards
 from blurred_gan_tpu_torch.utils import logging as logging_mod
 from test_torch_mnist import parser_flags, script_flags, write_mnist_npz
 from torch_jax_state import ensure_jax_native
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RES = 16

@@ -32,6 +32,7 @@ from blurred_gan_tpu_torch.metrics.kid import kid, kid_from_images
 from blurred_gan_tpu_torch.metrics.prdc import prdc, prdc_from_images
 from blurred_gan_tpu_torch.tools import score
 from test_torch_metrics import jax_random_conv_weights, nchw
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 KID_TOL = dict(rtol=1e-5)

@@ -24,6 +24,7 @@ from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters
 from blurred_gan_tpu_torch.train.loop import Trainer, TrainerConfig
 from blurred_gan_tpu_torch.train.state import GAN
 from blurred_gan_tpu_torch.utils import logging as logging_mod
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NO_TENSORBOARD = """
 import blurred_gan_tpu_torch.utils.logging as logging_mod

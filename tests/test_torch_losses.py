@@ -21,6 +21,7 @@ from blurred_gan_tpu_torch.convert import flax_to_torch
 from blurred_gan_tpu_torch.losses import wgan as tl
 from blurred_gan_tpu_torch.models import dcgan as tm
 from blurred_gan_tpu_torch.ops.blur import blur_images as torch_blur
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 VALUE = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)

@@ -27,6 +27,7 @@ from blurred_gan_tpu.metrics import swd as jswd
 from blurred_gan_tpu_torch.convert import inception_params_to_torch, random_conv_weights_to_torch
 from blurred_gan_tpu_torch.metrics import fid, inception, swd
 from torch_jax_state import threefry_prng  # noqa: F401  (autouse: JAX's draws as pinned)
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def nchw(x):

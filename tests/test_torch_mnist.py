@@ -27,6 +27,7 @@ from blurred_gan_tpu_torch.data import pipeline as tp
 from blurred_gan_tpu_torch.metrics.swd import SWDMetric
 from blurred_gan_tpu_torch.train.loop import MetricFeeder
 from blurred_gan_tpu_torch.utils import logging as logging_mod
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

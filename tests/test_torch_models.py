@@ -21,6 +21,7 @@ import torch
 from blurred_gan_tpu.models import dcgan as jm
 from blurred_gan_tpu_torch.convert import flax_to_torch
 from blurred_gan_tpu_torch.models import dcgan as tm
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NARROW = dict(rtol=1e-5, atol=1e-5)
 FULL = dict(rtol=1e-4, atol=1e-4)

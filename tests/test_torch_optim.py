@@ -28,6 +28,7 @@ from torch_variant_harness import (
     LOSS, PARAM_TOL, SIGMA, assert_bn_stats_close, assert_grads_close, assert_post_step_close,
     jax_grads, jax_run, port_run, reals_batches, torch_gan)
 from torch_variant_harness import hparams as port_hparams
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 OPTAX_TOL = dict(rtol=1e-6, atol=1e-7)  # float32 both sides, one rounding apart
 

@@ -67,6 +67,7 @@ from torch_variant_harness import (
 from test_torch_metrics import PinnedSWD, nchw, swd_pairs
 from test_torch_step import D_CHANNELS, G_KW, GRAD_FLOOR
 from torch_jax_state import threefry_prng  # noqa: F401  (autouse: JAX's draws as pinned)
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, GLOBAL_BATCH = 2, 16

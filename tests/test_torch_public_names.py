@@ -36,6 +36,7 @@ from blurred_gan_tpu_torch.models.dcgan import (
 from blurred_gan_tpu_torch.ops.blur import maximum_reasonable_std
 from blurred_gan_tpu_torch.train.state import count_params
 from blurred_gan_tpu_torch.utils import images
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("train", "metrics", "ops", "data", "sched", "utils", "losses")

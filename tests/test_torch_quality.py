@@ -50,6 +50,7 @@ from blurred_gan_tpu_torch.models.dcgan import (
 from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters
 from blurred_gan_tpu_torch.train.state import GAN, create_train_state
 from test_torch_sampling import perturbed
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CORPUS = 256
@@ -72,17 +73,6 @@ def _load(name, path):
 
 qts = _load("quality_torch_score", REPO / "quality_torch_score.py")
 qp = qts.qp  # benchmarks/quality_parity.py, as the scorer imports it
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module: its runs are many small ops,
-    which a worker's default thread pool slows when the suite's other
-    workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

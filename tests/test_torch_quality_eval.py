@@ -37,18 +37,11 @@ from blurred_gan_tpu_torch.metrics.fid import random_conv_features
 from test_torch_metrics import PinnedSWD, jax_random_conv_weights
 from test_torch_quality import qp, qts
 from torch_jax_state import threefry_prng  # noqa: F401  (autouse: JAX's draws as pinned)
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 SHAPE = (32, 32, 3)
 N = 100
 SWD_KW = dict(nhoods_per_image=16, dir_repeats=1, dirs_per_repeat=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @functools.lru_cache(maxsize=None)

@@ -46,6 +46,7 @@ from blurred_gan_tpu_torch.train.state import create_train_state
 from blurred_gan_tpu_torch.utils import logging as logging_mod
 from blurred_gan_tpu_torch.utils import rundir
 from test_torch_mnist import parser_flags, script_flags, write_mnist_npz
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -37,6 +37,7 @@ from blurred_gan_tpu_torch.utils import profiling
 from blurred_gan_tpu_torch.utils.logging import MetricsLogger
 from test_torch_fast import micro_gan
 from test_torch_sampling import mnist_run, perturbed
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 LATENT = 16

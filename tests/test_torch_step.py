@@ -36,6 +36,7 @@ from blurred_gan_tpu_torch.train import step as step_mod
 from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters
 from blurred_gan_tpu_torch.train.state import GAN, create_train_state
 from blurred_gan_tpu_torch.train.step import make_train_step
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 LOSS = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)

@@ -46,6 +46,7 @@ from blurred_gan_tpu_torch.utils import logging as logging_mod
 from blurred_gan_tpu_torch.utils import watchdog
 from blurred_gan_tpu_torch.utils.images import normalize_images, samples_grid
 from blurred_gan_tpu_torch.utils.rundir import create_result_subdir, load_run_manifest
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -38,6 +38,7 @@ from torch_variant_harness import (
     assert_params_close, assert_post_step_close, jax_grads, jax_run, port_run, reals_batches,
     torch_gan)
 from torch_variant_harness import hparams as port_hparams
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 # name: (port_run / jax_run arguments, the step's GP coefficient or None, GP applied)
 SINGLE = {

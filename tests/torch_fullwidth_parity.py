@@ -18,16 +18,17 @@ share masks). Arms:
 3. ``celeba64 --ref_grad_scale``, 2 steps;
 4. ``mnist`` plain, 2 steps;
 5. ``celeba64_sharp --bf16``, 2 steps, against JAX compiled without XLA's
-   excess precision (``exact``, what ``tests/test_torch_bf16.py`` holds the
-   port to) and by default (``default``, excess precision on, the program the
-   JAX package trains with); also ``default`` against ``exact``, and the
-   port with its bfloat16 generator's products summed in float32 and left
-   unrounded (``torch_tpu_precision.generator_f32_sums``) against both.
+   excess precision (``exact``) and by default (``default``, excess precision
+   on, the program the JAX package trains with); also ``default`` against
+   ``exact``. The port's bfloat16 generator keeps its products' float32 sums
+   where the default compile does (``models/dcgan.py``'s ``f32_sums``).
 
 ``--hlo`` lists the bfloat16 roundings the default compile of arm 5's JAX
 step drops: an f32 value converted to bf16 and straight back inside one
 computation, counted in each compile by the network and pass of the fusion
-that holds it.
+that holds it; then the same for its generator alone, by layer, for both
+upsamplers with and without ``--fast_gen``, in eval mode and in train mode
+with its VJP (:func:`hlo_generator_roundings`).
 
 Per step, one JSON line: each loss on each side and its relative difference;
 for each network the relative L2 of its parameter update (the step's change
@@ -80,7 +81,6 @@ from blurred_gan_tpu_torch.train.loop import Trainer, TrainerConfig
 from blurred_gan_tpu_torch.train.state import GAN, create_train_state
 from blurred_gan_tpu_torch.train.step import make_train_step
 from blurred_gan_tpu_torch.utils import logging as logging_mod
-from torch_tpu_precision import generator_f32_sums
 from torch_variant_harness import exact_rounding, load_jax_state
 
 B = quality.BATCH
@@ -257,7 +257,47 @@ def hlo_roundings(emit) -> None:
                                             key=lambda kv: -kv[1]))})
 
 
-def _roundings(text: str) -> collections.Counter:
+def hlo_generator_roundings(emit) -> None:
+    """Arm 5's bfloat16 generator alone, per upsampler and ``--fast_gen``:
+    the roundings the default compile drops from the exact one in the eval
+    forward and in the train forward with its VJP, by the layer whose op
+    holds them (:func:`_roundings`' rule; ``jvp``: forward, ``transpose``:
+    backward). The port keeps the float32 sums exactly where a layer's
+    forward loses them here (``models/dcgan.py``'s ``f32_sums``)."""
+    cfg = quality.CONFIGS[ARMS[5]["config"]]
+    res = cfg.image_shape[0]
+    z = jnp.asarray(np.random.RandomState(0).rand(B, quality.LATENT).astype(np.float32))
+    cot = jnp.asarray(np.random.RandomState(1).randn(B, *cfg.image_shape).astype(np.float32))
+    for upsample in ("transpose", "resize"):
+        for fast in (False, True):
+            kw = {"bn_dtype": jnp.bfloat16, "output_f32": False} if fast else {}
+            gen = jmodels.celeba_generator(res, upsample=upsample,
+                                           compute_dtype=jnp.bfloat16, **kw)
+            variables = gen.init(jax.random.PRNGKey(0), z, train=False)
+
+            def evaluate(v, z):
+                return gen.apply(v, z, train=False)
+
+            def train_vjp(v, z):
+                def out(params):
+                    return gen.apply({"params": params, "batch_stats": v["batch_stats"]}, z,
+                                     train=True, mutable=["batch_stats"])[0]
+                return jax.vjp(out, v["params"])[1](cot.astype(
+                    jnp.bfloat16 if fast else jnp.float32))
+
+            for mode, fn in (("eval", evaluate), ("train+vjp", train_vjp)):
+                lowered = jax.jit(fn).lower(variables, z)
+                counts = [_roundings(c.as_text(), depth=3) for c in (
+                    lowered.compile(), lowered.compile(
+                        compiler_options={"xla_allow_excess_precision": False}))]
+                dropped = {k: v - counts[0].get(k, 0) for k, v in counts[1].items()
+                           if v > counts[0].get(k, 0)}
+                emit({"hlo_generator": {"upsample": upsample, "fast_gen": fast, "mode": mode},
+                      "exact": sum(counts[1].values()), "default": sum(counts[0].values()),
+                      "dropped_by_default": dict(sorted(dropped.items()))})
+
+
+def _roundings(text: str, depth: int = 2) -> collections.Counter:
     comp, converts, owner = None, {}, {}
     for line in text.splitlines():
         head = re.match(r"^(?:ENTRY )?%?([\w.\-]+) .*\{$", line)
@@ -276,9 +316,10 @@ def _roundings(text: str) -> collections.Counter:
     for (comp, _), (dtype, src, op) in converts.items():
         if dtype == "f32" and converts.get((comp, src), ("",))[0] == "bf16":
             # The convert's own op, else the op of the fusion that holds it.
-            op = (op or owner.get(comp, comp)).replace("jit(step)/", "")
-            # The network, the pass (jvp: forward, transpose: backward) and the layer.
-            out["/".join(p for p in op.split("/")[:2])] += 1
+            op = re.sub(r"^jit\(\w+\)/", "", op or owner.get(comp, comp))
+            # The network and the pass (jvp: forward, transpose: backward),
+            # or with ``depth`` 3 the layer too.
+            out["/".join(p for p in op.split("/")[:depth])] += 1
     return out
 
 
@@ -304,9 +345,6 @@ def run_arm(n: int, emit) -> None:
     pairs = [("port_vs_jax_" + m, (port_params, port_metrics), jax_sides[m]) for m in modes]
     if "default" in jax_sides:
         pairs.append(("jax_default_vs_jax_exact", jax_sides["default"], jax_sides["exact"]))
-        with generator_f32_sums():
-            variant = port_trajectory(cfg, hp, dtype, state0, batches, sigma)[:2]
-        pairs += [("port_generator_f32_sums_vs_jax_" + m, variant, jax_sides[m]) for m in modes]
     for name, (pa, ma), (pb, mb) in pairs:
         for i in range(arm["steps"]):
             emit(dict({"arm": n, "config": cfg.name, "dtype": dtype, "hp": hp_kw},
@@ -423,7 +461,8 @@ def main(argv=None) -> None:
     p.add_argument("--arms", default="1,2,3,4,5", help="the step arms ('' for none)")
     p.add_argument("--schedule", action="store_true", help="also the whole-run schedule check")
     p.add_argument("--hlo", action="store_true",
-                   help="also arm 5's bfloat16 roundings in JAX's two compiles")
+                   help="also arm 5's bfloat16 roundings in JAX's two compiles, the step's "
+                        "and its generator's")
     p.add_argument("--seeds", default="0,6", help="the schedule check's seeds")
     p.add_argument("--threads", type=int, default=4, help="torch intra-op threads")
     p.add_argument("--out", default="", help="also append every line to this JSONL file")
@@ -443,6 +482,7 @@ def main(argv=None) -> None:
         run_arm(n, emit)
     if args.hlo:
         hlo_roundings(emit)
+        hlo_generator_roundings(emit)
     if args.schedule:
         schedule_check([int(s) for s in args.seeds.split(",")], emit)
 

@@ -18,21 +18,18 @@ in float32 (the package asks for more only in its blur). Inside
   backward): each backward product is again a rounded product;
 - the blur, BatchNorm and everything elementwise stay float32, as in JAX.
 
-``--mode generator_f32_sums`` is the second experiment, on ``--bf16`` runs
-(:func:`generator_f32_sums`): the bfloat16 generator's products keep their
-float32 sums, as the JAX package's default compile does.
+(Its second experiment, a ``--bf16`` generator whose products keep their
+float32 sums as the JAX package's default compile does, is what ``--bf16``
+computes now: ``models/dcgan.py``'s ``f32_sums``.)
 
 The CLI runs ``python -m blurred_gan_tpu_torch.quality`` (``train`` or
 ``evaluate``, the same flags) inside the mode's context; ``train`` checks
 through the ``on_trainer`` hook that the networks' products go through it and
-adds ``"tpu_precision"`` (or ``"generator_f32_sums"``) with the count of
-products to the meta. Write its runs to their own ``--out``: their files
+adds ``"tpu_precision"`` with the count of products to the meta. Write its runs to their own ``--out``: their files
 have the plain arms' names.
 
     PYTHONPATH=. python tests/torch_tpu_precision.py train --config mnist \\
         --examples 180000 --seed 0 --out runs/quality/tpu_precision/mnist
-    PYTHONPATH=. python tests/torch_tpu_precision.py --mode generator_f32_sums train \\
-        --config celeba64_sharp --bf16 --examples 60000 --seed 0 --out runs/quality/f32_sums
 
 It imports torch and the port only, so it runs on the card's machine.
 """
@@ -180,96 +177,23 @@ def tpu_default_precision():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-class _Float32Sums:
-    """``torch.nn.functional`` whose convolutions and dense product, given
-    bfloat16 operands, return their float32 sums unrounded (each term of two
-    bfloat16 values is exact in float32; TF32 is off)."""
-
-    def __getattr__(self, name):
-        return getattr(F, name)
-
-    @staticmethod
-    def _f32(fn, x, w, *args, **kw):
-        COUNT["products"] += 1
-        if x.dtype != torch.bfloat16:
-            return fn(x, w, *args, **kw)
-        return fn(x.float(), w.float(), *[a.float() if torch.is_tensor(a) else a for a in args],
-                  **kw)
-
-    def conv2d(self, x, w, bias=None, **kw):
-        return self._f32(F.conv2d, x, w, bias, **kw)
-
-    def conv_transpose2d(self, x, w, *args, **kw):
-        return self._f32(F.conv_transpose2d, x, w, *args, **kw)
-
-    def linear(self, x, w, bias=None):
-        return self._f32(F.linear, x, w, bias)
-
-
-@contextlib.contextmanager
-def generator_f32_sums():
-    """Inside, the ``--bf16`` generator's convolutions and Dense keep their
-    float32 sums unrounded (the critic is unchanged): what the JAX package's
-    bfloat16 step does where XLA's excess precision (on by default) keeps a
-    product's float32 result for a float32 consumer, here every BatchNorm
-    and the float32 tanh (``tests/torch_fullwidth_parity.py --hlo``). TF32 is
-    off."""
-    forward = dcgan.DCGANGenerator.forward
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-
-    def gen_forward(self, z):
-        functional, dcgan.F = dcgan.F, _Float32Sums()
-        try:
-            return forward(self, z)
-        finally:
-            dcgan.F = functional
-
-    dcgan.DCGANGenerator.forward = gen_forward
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield COUNT
-    finally:
-        dcgan.DCGANGenerator.forward = forward
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
 def _products(module) -> int:
     """The convolutions and dense products of one forward of ``module``."""
     return (sum(isinstance(m, (dcgan.SameConv2d, dcgan.SameConvTranspose2d))
                 for m in module.modules()) + 1)
 
 
-# mode: (context, what its meta records, the networks whose forward it changes)
-MODES = {
-    "tpu_default": (tpu_default_precision,
-                    {"operands": "bfloat16", "accumulation": "float32"},
-                    ("generator", "discriminator")),
-    "generator_f32_sums": (generator_f32_sums,
-                           {"generator_products": "float32 sums of bfloat16 operands"},
-                           ("generator",)),
-}
-
-
 def main(argv: Optional[Sequence[str]] = None):
-    import argparse
-
     from blurred_gan_tpu_torch import quality
 
-    harness = argparse.ArgumentParser(add_help=False)
-    harness.add_argument("--mode", choices=sorted(MODES), default="tpu_default")
-    known, rest = harness.parse_known_args(argv)
-    args = quality.parse_args(rest)
-    context, record, nets = MODES[known.mode]
-    if known.mode == "generator_f32_sums" and args.cmd == "train" and not args.bf16:
-        raise SystemExit("--mode generator_f32_sums changes only a --bf16 generator")
-    with context() as count:
+    args = quality.parse_args(argv)
+    with tpu_default_precision() as count:
         if args.cmd != "train":
-            return quality.main(rest)
+            return quality.main(argv)
 
         def check(trainer):
             # An eval-mode forward of both networks on a fixed latent (no
-            # draw, no BatchNorm update) counts the products of ``nets``.
+            # draw, no BatchNorm update) counts their products.
             gan, before = trainer.gan, count["products"]
             modes = gan.generator.training, gan.discriminator.training
             gan.generator.eval()
@@ -279,7 +203,7 @@ def main(argv: Optional[Sequence[str]] = None):
                 gan.discriminator(gan.generator(z))
             gan.generator.train(modes[0])
             gan.discriminator.train(modes[1])
-            want = sum(_products(getattr(gan, net)) for net in nets)
+            want = _products(gan.generator) + _products(gan.discriminator)
             if count["products"] - before != want:
                 raise SystemExit(f"{count['products'] - before} of the networks' {want} "
                                  "products went through the harness")
@@ -291,8 +215,8 @@ def main(argv: Optional[Sequence[str]] = None):
                              gen_upsample=args.gen_upsample, ttur_g_lr=args.ttur_g_lr,
                              d_steps=args.d_steps, device=args.device,
                              concurrent_runs=args.concurrent_runs, on_trainer=check)
-    meta["tpu_precision" if known.mode == "tpu_default" else known.mode] = dict(
-        record, products=count["products"])
+    meta["tpu_precision"] = {"operands": "bfloat16", "accumulation": "float32",
+                             "products": count["products"]}
     prefix = quality.arm_prefix(ema_decay=args.ema_decay, bf16=args.bf16,
                                 adaptive=args.adaptive, ref_grad_scale=args.ref_grad_scale,
                                 gen_upsample=args.gen_upsample, ttur_g_lr=args.ttur_g_lr,
