@@ -6,9 +6,11 @@
     python -m blurred_gan_tpu_torch.bench --infer_export   # the exported generator at b128
     python -m blurred_gan_tpu_torch.bench --device cpu     # CPU smoke: 32², b8, 3 steps
     python -m blurred_gan_tpu_torch.bench --ablation       # the step's components, in turns
+    python -m blurred_gan_tpu_torch.bench --blur_ab        # the blur kernel against the plain blur
 
-Prints ONE JSON line (``--ablation``: one an arm, then its summary) and
-exits 0, or exits 1 when the (last) line says ``"correct": false``; a CUDA
+Prints ONE JSON line (``--ablation``: one an arm, then its summary;
+``--blur_ab``: one an arm and resolution) and exits 0, or exits 1 when the
+(last) line says ``"correct": false``; a CUDA
 error raises. Without ``--device cpu`` it runs on the card and raises if
 there is none.
 
@@ -37,6 +39,18 @@ Modes, each the port of a function of the root script:
   step-checked, their windows timed in turns (one of each arm a round); one
   line per arm with the JAX script's keys, then its ``summary_ms`` line (each
   component's marginal: ``full`` minus the arm without it).
+- ``--blur_ab`` (``benchmarks/blur_ab.py``): the forward blur alone, the
+  kernel (``cuda``) against the plain two-matmul version (``torch``), at each
+  of ``--resolutions`` on a ``(--batch, 3, R, R)`` float32 batch drawn on the
+  device from a seeded generator. A run chains blurs, each on the last one's
+  output at σ = 2.5·0.999^i with the band matrices built from σ on the device
+  every call, as the JAX script's scan: on the card :data:`BLUR_AB_CHUNK` of
+  them captured once as a CUDA graph and replayed, timed by CUDA events.
+  Each arm's run grows until it costs ``--min-seconds``; then the arms are
+  timed in turns over ``WINDOWS`` rounds. Before any timing each arm's blur
+  is held to the other's (``BLUR_AB_TOL``): if they differ the one line says
+  ``"correct": false``. One line per (impl, resolution) with the JAX script's
+  keys (``us_per_blur`` the median round's).
 
 ``value`` is the MEDIAN of ``WINDOWS`` timed windows (``windows`` holds each
 one's rate), after one untimed window that captures or warms up. The root
@@ -85,6 +99,7 @@ from blurred_gan_tpu_torch.models.dcgan import (
     SameConv2d, SameConvTranspose2d, _conv_transpose_pad_lo, _same_pads, celeba_discriminator,
     celeba_generator)
 from blurred_gan_tpu_torch.ops import blur_cuda
+from blurred_gan_tpu_torch.ops.blur import blur_images
 from blurred_gan_tpu_torch.sched.blur import BlurDecayController
 from blurred_gan_tpu_torch.serving import export_generator, load_generator
 from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters, WGANHyperParameters
@@ -115,6 +130,12 @@ LOSS_KEYS = ("disc_loss", "gen_loss", "gp_term", "wgan_loss", "fake_scores", "re
 PEAK_FLOPS = (("H100 80GB HBM3", {torch.bfloat16: 989.4e12, torch.float32: 66.9e12}),)
 # The batch the FLOPs are counted at (times grad_accum), then scaled.
 FLOP_BATCH = 2
+# --blur_ab: the blurs a captured chain holds (the JAX script's first scan
+# length), the arms, and the kernel against the plain blur (chip_smoke.py's
+# FWD_TOL: float32 both sides, another summation order).
+BLUR_AB_CHUNK = 50
+BLUR_AB_IMPLS = ("torch", "cuda")
+BLUR_AB_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 class Arm(NamedTuple):
@@ -331,11 +352,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ablation", action="store_true",
                    help="time the train step's variants (benchmarks/step_ablation.py: full, "
                         "no_gen, no_gp, no_blur) in turns: one line each, then summary_ms")
+    p.add_argument("--blur_ab", action="store_true",
+                   help="time the forward blur alone, the kernel against the plain version "
+                        "(benchmarks/blur_ab.py): one line per impl and resolution")
+    p.add_argument("--resolutions", type=str, default="128,256",
+                   help="--blur_ab's resolutions, comma-separated")
+    p.add_argument("--min-seconds", type=float, default=0.5,
+                   help="--blur_ab: grow each arm's run until it costs this long")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
-    if args.ablation and (args.chunked or args.infer or args.infer_export):
+    modes = [m for m in ("chunked", "infer", "infer_export", "ablation", "blur_ab")
+             if getattr(args, m)]
+    if args.ablation and len(modes) > 1:
         p.error("--ablation times the fixed-batch step; it takes no other mode")
+    if args.blur_ab and len(modes) > 1:
+        p.error("--blur_ab times the blur alone; it takes no other mode")
     return args
 
 
@@ -592,6 +624,94 @@ def ablation(args: argparse.Namespace) -> list:
     return [*lines.values(), summary]
 
 
+class BlurChain:
+    """:data:`BLUR_AB_CHUNK` chained forward blurs of one impl on the static
+    NCHW batch ``self.x``: blur ``j`` of the run takes the last one's output
+    at σ = 2.5·0.999^(i + j), ``i`` counted on the device; the last output is
+    written back into ``self.x`` and ``i`` advanced, so that runs chain. On
+    the card one CUDA graph, captured once and replayed; on the CPU eager."""
+
+    def __init__(self, x: torch.Tensor, impl: str):
+        self.x, self.impl = x.clone(), impl
+        self.i = torch.zeros((), dtype=torch.float32, device=x.device)
+        self.graph = None
+        if x.is_cuda:
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(side), torch.no_grad():
+                self._chunk()
+            torch.cuda.current_stream(x.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph), torch.no_grad():
+                self._chunk()
+
+    def _chunk(self) -> None:
+        y = self.x
+        for j in range(BLUR_AB_CHUNK):
+            y = blur_images(y, SIGMA0 * SIGMA_DECAY ** (self.i + j), impl=self.impl)
+        self.x.copy_(y)
+        self.i += BLUR_AB_CHUNK
+
+    def seconds(self, chunks: int) -> float:
+        """Device seconds of ``chunks`` chunks (host seconds on the CPU)."""
+        if self.graph is None:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for _ in range(chunks):
+                    self._chunk()
+            return time.perf_counter() - t0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(chunks):
+            self.graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+
+def blur_ab(args: argparse.Namespace) -> list:
+    """``--blur_ab``: each (impl, resolution)'s line; one line with
+    ``"correct": false`` (and no timing) if the arms' blurs differ."""
+    device = setup_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    batch = args.batch or 32
+    base = {"backend": f"torch-{device.type}", **device_fields(device)}
+    lines = []
+    for res in (int(r) for r in args.resolutions.split(",")):
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = torch.rand((batch, 3, res, res), generator=gen, device=device) * 2 - 1
+        with torch.no_grad():
+            outs = {impl: blur_images(x, SIGMA0, impl=impl) for impl in BLUR_AB_IMPLS}
+        err = float((outs["cuda"] - outs["torch"]).abs().max())
+        if not torch.allclose(outs["cuda"], outs["torch"], **BLUR_AB_TOL):
+            return [dict(base, resolution=res, batch=batch, max_abs_err=err, tol=BLUR_AB_TOL,
+                         correct=False)]
+        chains, chunks = {}, {}
+        for impl in BLUR_AB_IMPLS:
+            chains[impl] = BlurChain(x, impl)
+            n, dt = 1, chains[impl].seconds(1)
+            # The JAX script's calibration, in whole chunks.
+            while dt < args.min_seconds and n * BLUR_AB_CHUNK < 200_000:
+                n = int(n * max(2.0, 1.3 * args.min_seconds / max(dt, 1e-4)))
+                dt = chains[impl].seconds(n)
+            chunks[impl] = n
+        rounds = {impl: [] for impl in BLUR_AB_IMPLS}
+        for rep in range(WINDOWS):
+            for impl in (BLUR_AB_IMPLS if rep % 2 == 0 else BLUR_AB_IMPLS[::-1]):
+                iters = chunks[impl] * BLUR_AB_CHUNK
+                rounds[impl].append(chains[impl].seconds(chunks[impl]) / iters * 1e6)
+        planes = batch * 3
+        for impl in BLUR_AB_IMPLS:
+            us = statistics.median(rounds[impl])
+            lines.append(dict(impl=impl, resolution=res, batch=batch,
+                              iters=chunks[impl] * BLUR_AB_CHUNK, us_per_blur=round(us, 2),
+                              gflops=round(2 * planes * res ** 3 * 2 / (us * 1e-6) / 1e9, 1),
+                              **base, us_per_blur_rounds=[round(u, 3) for u in rounds[impl]],
+                              max_abs_err=err, correct=True))
+    return lines
+
+
 def bench(args: argparse.Namespace) -> dict:
     """Run the mode ``args`` asks for; the output line as a dict."""
     device, resolution, batch, steps, dtype = run_settings(args)
@@ -664,10 +784,14 @@ def bench(args: argparse.Namespace) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Print the mode's line (``--ablation``: its lines, the summary last);
-    exit 1 where the last says ``"correct": false``. Returns the last."""
+    """Print the mode's line (``--ablation``: its lines, the summary last;
+    ``--blur_ab``: its lines); exit 1 where the last says ``"correct":
+    false``. Returns the last."""
     args = parse_args(argv)
-    lines = ablation(args) if args.ablation else [bench(args)]
+    if args.blur_ab:
+        lines = blur_ab(args)
+    else:
+        lines = ablation(args) if args.ablation else [bench(args)]
     for line in lines:
         print(json.dumps(line), flush=True)
     if not lines[-1]["correct"]:

@@ -27,13 +27,23 @@ JAX package's dtype boundaries, not autocast's:
   JAX package's default compile keeps them (XLA's excess precision drops the
   round trip through bfloat16 before a float32 consumer). The product then
   runs in float32, exact for bfloat16 operands with TF32 off (the entry
-  points turn it off); its input and weight gradients are rounded to
-  ``compute_dtype`` as before;
+  points turn it off);
+- the generator's products differentiate as that compile does
+  (``f32_grads``, :class:`_GeneratorProduct`): the cotangent is rounded to
+  ``compute_dtype`` (the product's declared dtype), both backward products
+  run in float32 on the rounded operands, the weight's gradient stays
+  float32 and the input's is rounded only where the input itself is a
+  ``compute_dtype`` tensor (``--fast_gen``'s bfloat16 activations). The
+  critic's products round every gradient, as the JAX package's dtypes say;
 - BatchNorm computes its statistics and its normalise / scale / shift in
   float32 and casts only the result to its ``dtype`` (flax's ``_normalize``);
-  the generator's ``bn_dtype`` defaults to float32;
+  the generator's ``bn_dtype`` defaults to float32; its two float32 casts of
+  the input round each path's gradient to the input's declared dtype
+  (``grad_dtype``, the product's ``compute_dtype``), as the transposes of
+  JAX's casts do;
 - the generator casts to float32 before its tanh unless ``output_f32`` is
-  False;
+  False; a bfloat16 tanh's derivative rounds each step as JAX's does
+  (:class:`_Tanh`);
 - the critic casts its input to ``compute_dtype`` and its flattened features
   back to float32 before its float32 Dense.
 
@@ -48,6 +58,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from blurred_gan_tpu_torch.parallel import all_reduce_sum
 from blurred_gan_tpu_torch.runtime import process_count
@@ -75,27 +86,99 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
     return t if t is None else t.to(dtype)
 
 
-def _product(fn, x, w, *args, f32_sums: bool = False, **kw):
-    """``fn(x, w, *args, **kw)`` for operands already in the compute dtype;
-    with ``f32_sums`` and operands below float32, on their float32 values, so
-    that the result is the unrounded float32 sums."""
-    if f32_sums and x.dtype != torch.float32:
-        x, w = x.float(), w.float()
-        args = [_cast(a, torch.float32) if torch.is_tensor(a) else a for a in args]
-    return fn(x, w, *args, **kw)
+def _bilinear(conv, x, w):
+    """The product ``conv`` names: None a Dense (``x @ w.T``), else
+    ``(stride, padding, transposed)`` a convolution or a transposed one."""
+    if conv is None:
+        return F.linear(x, w)
+    stride, padding, transposed = conv
+    fn = F.conv_transpose2d if transposed else F.conv2d
+    return fn(x, w, stride=stride, padding=padding)
+
+
+class _GeneratorProduct(torch.autograd.Function):
+    """A generator product below float32 as the JAX package's default
+    compile differentiates it (module docstring). Forward: both operands
+    rounded to ``dtype``; the float32 sums of those values (``f32_sums``)
+    or the product in ``dtype``. Backward: the
+    cotangent rounded to ``dtype``; both backward products in float32 on
+    the rounded operands; the weight's gradient returned in float32, rounded
+    to ``dtype`` for a Dense (``round_wgrad``: that compile keeps the
+    Dense's rounding, moved onto the transpose of its result), and the
+    input's in the input's dtype (autograd rounds it where that is
+    ``dtype``). First order only: no path differentiates the generator
+    twice (the penalty's interpolates come from detached fakes)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dtype, f32_sums, conv, round_wgrad):
+        xr, wr = x.to(dtype), w.to(dtype)
+        ctx.save_for_backward(xr, wr)
+        ctx.dtype, ctx.conv, ctx.round_wgrad = dtype, conv, round_wgrad
+        return _bilinear(conv, xr.float(), wr.float()) if f32_sums else _bilinear(conv, xr, wr)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        g, x, w = g.to(ctx.dtype).float(), xr.float(), wr.float()
+        need_x, need_w = ctx.needs_input_grad[:2]
+        if ctx.conv is None:
+            gx = g.mm(w) if need_x else None
+            gw = g.t().mm(x) if need_w else None
+        else:
+            stride, padding, transposed = ctx.conv
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [stride] * 2, [padding] * 2, [1, 1], transposed, [0, 0], 1,
+                [need_x, need_w, False])
+        if gw is not None and ctx.round_wgrad:
+            gw = gw.to(ctx.dtype).float()
+        return gx, gw, None, None, None, None
+
+
+def _generator_product(x, w, dtype, f32_sums, conv=None):
+    """The generator's product of ``x`` and the float32 weight ``w`` in
+    ``dtype`` (``conv`` as :func:`_bilinear`'s): :class:`_GeneratorProduct`
+    where a gradient is wanted below float32, else its forward (the float32
+    product at float32)."""
+    if dtype == torch.float32:
+        return _bilinear(conv, x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GeneratorProduct.apply(x, w, dtype, f32_sums, conv, conv is None)
+    xr, wr = x.to(dtype), w.to(dtype)
+    return _bilinear(conv, xr.float(), wr.float()) if f32_sums else _bilinear(conv, xr, wr)
+
+
+class _RoundedGrad(torch.autograd.Function):
+    """The identity, whose backward rounds the cotangent to ``dtype``
+    (returned in the cotangent's own dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
 
 
 class SameConv2d(nn.Module):
     """flax ``nn.Conv(padding="SAME")``; weight (out, in, kh, kw). Computes
-    in ``compute_dtype``; ``f32_sums``: returns float32 sums (module
-    docstring)."""
+    in ``compute_dtype``; ``f32_grads`` (the generator's, bias-free): a
+    :func:`_generator_product`, returning its float32 sums where
+    ``f32_sums`` (module docstring)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.float32, f32_sums: bool = False):
+                 compute_dtype: torch.dtype = torch.float32, f32_sums: bool = False,
+                 f32_grads: bool = False):
         super().__init__()
+        if f32_grads and bias:
+            raise ValueError("f32_grads is for the generator's bias-free convolutions")
         self.stride = stride
         self.compute_dtype = compute_dtype
         self.f32_sums = f32_sums
+        self.f32_grads = f32_grads
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, KERNEL, KERNEL))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
@@ -103,21 +186,24 @@ class SameConv2d(nn.Module):
         dt = self.compute_dtype
         ph = _same_pads(x.shape[2], KERNEL, self.stride)
         pw = _same_pads(x.shape[3], KERNEL, self.stride)
+        if self.f32_grads:
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+            return _generator_product(x, self.weight, dt, self.f32_sums, (self.stride, 0, False))
         x = F.pad(_cast(x, dt), (pw[0], pw[1], ph[0], ph[1]))
         w, b = _cast(self.weight, dt), _cast(self.bias, dt)
         if b is None or dt == torch.float32:
-            return _product(F.conv2d, x, w, b, stride=self.stride, f32_sums=self.f32_sums)
+            return F.conv2d(x, w, b, stride=self.stride)
         # flax adds the bias to the product's result, in the compute dtype:
         # below float32 that rounds twice, where a fused bias rounds once.
-        y = _product(F.conv2d, x, w, stride=self.stride, f32_sums=self.f32_sums)
-        return y + b.reshape(1, -1, 1, 1)
+        return F.conv2d(x, w, stride=self.stride) + b.reshape(1, -1, 1, 1)
 
 
 class SameConvTranspose2d(nn.Module):
     """flax ``nn.ConvTranspose(padding="SAME")``, bias-free; weight (in, out,
     kh, kw) holding the spatially flipped flax kernel. Output is ``stride``
-    times the input size. Computes in ``compute_dtype``; ``f32_sums`` as
-    :class:`SameConv2d`."""
+    times the input size. The generator's only: a
+    :func:`_generator_product` in ``compute_dtype``, ``f32_sums`` as
+    :class:`SameConv2d`'s."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  compute_dtype: torch.dtype = torch.float32, f32_sums: bool = False):
@@ -132,8 +218,7 @@ class SameConvTranspose2d(nn.Module):
         dt = self.compute_dtype
         h, w = x.shape[2], x.shape[3]
         pad = KERNEL - 1 - _conv_transpose_pad_lo(KERNEL, self.stride)
-        y = _product(F.conv_transpose2d, _cast(x, dt), _cast(self.weight, dt),
-                     stride=self.stride, padding=pad, f32_sums=self.f32_sums)
+        y = _generator_product(x, self.weight, dt, self.f32_sums, (self.stride, pad, True))
         return y[:, :, :self.stride * h, :self.stride * w]
 
 
@@ -154,15 +239,23 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, grad_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
         self.dtype = dtype
+        self.grad_dtype = grad_dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+
+    def _f32(self, x):
+        """``x`` in float32; the backward rounds its gradient to
+        ``grad_dtype`` (autograd does where ``x`` is in that dtype)."""
+        if x.dtype == torch.float32 and self.grad_dtype != torch.float32 and x.requires_grad:
+            return _RoundedGrad.apply(x, self.grad_dtype)
+        return x.to(torch.float32)
 
     def forward(self, x):
         # Two casts, one for the statistics and one for the normalisation, as
@@ -171,9 +264,9 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = [0, *range(2, x.dim())]
             if process_count() > 1:
-                mean, var = _global_moments(x.to(torch.float32), dims)
+                mean, var = _global_moments(self._f32(x), dims)
             else:
-                var, mean = torch.var_mean(x.to(torch.float32), dim=dims, correction=0)
+                var, mean = torch.var_mean(self._f32(x), dim=dims, correction=0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     mean.detach(), alpha=1.0 - self.momentum)
@@ -183,7 +276,7 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         shape = (1, -1) + (1,) * (x.dim() - 2)
         scale = self.weight * torch.rsqrt(var + self.eps)
-        y = ((x.to(torch.float32) - mean.reshape(shape)) * scale.reshape(shape)
+        y = ((self._f32(x) - mean.reshape(shape)) * scale.reshape(shape)
              + self.bias.reshape(shape))
         return y.to(self.dtype)
 
@@ -209,14 +302,42 @@ def _weak(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+class _Tanh(torch.autograd.Function):
+    """``torch.tanh`` whose backward rounds as JAX's below float32 does:
+    for the output ``y`` and the cotangent ``c`` in bfloat16, ``t = c·(1 − y)``
+    then ``t + t·y``, each operation rounded (jax's ``tanh`` derivative,
+    ``(g + g·y)·(1 − y)``, transposed), where ``torch.tanh`` rounds
+    ``c·(1 − y²)`` once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, c):
+        (y,) = ctx.saved_tensors
+        t = c * (1 - y)
+        return t + t * y
+
+
+def _tanh(x):
+    if x.dtype == torch.float32 or not x.requires_grad:
+        return torch.tanh(x)
+    return _Tanh.apply(x)
+
+
 def _leaky(x):
     return F.leaky_relu(x, _weak(LEAKY_SLOPE, x.dtype))
 
 
 class Upsample(nn.Module):
     """One generator up-stage: ConvTranspose(5x5, s), or for ``resize`` with
-    ``s > 1`` nearest-neighbour ``s``x then Conv(5x5, s1). Bias-free; computes
-    in ``compute_dtype``; ``f32_sums`` as :class:`SameConv2d`."""
+    ``s > 1`` nearest-neighbour ``s``x then Conv(5x5, s1). Bias-free; a
+    :func:`_generator_product` in ``compute_dtype``, ``f32_sums`` as
+    :class:`SameConv2d`'s."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int, mode: str,
                  compute_dtype: torch.dtype = torch.float32, f32_sums: bool = False):
@@ -224,8 +345,8 @@ class Upsample(nn.Module):
         self.stride = stride
         self.resize = mode == "resize" and stride > 1
         kw = dict(compute_dtype=compute_dtype, f32_sums=f32_sums)
-        self.conv = (SameConv2d(in_ch, out_ch, 1, bias=False, **kw) if self.resize
-                     else SameConvTranspose2d(in_ch, out_ch, stride, **kw))
+        self.conv = (SameConv2d(in_ch, out_ch, 1, bias=False, f32_grads=True, **kw)
+                     if self.resize else SameConvTranspose2d(in_ch, out_ch, stride, **kw))
 
     @property
     def flax_kind(self) -> str:
@@ -233,10 +354,9 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         if self.resize:
-            # Cast before the repeat (the conv's own cast is then a no-op):
-            # the same values, a quarter of the bytes.
-            x = _cast(x, self.conv.compute_dtype).repeat_interleave(
-                self.stride, dim=2).repeat_interleave(self.stride, dim=3)
+            # The repeat in the input's dtype, as flax's: its backward sums
+            # the convolution's input gradient in that dtype.
+            x = x.repeat_interleave(self.stride, dim=2).repeat_interleave(self.stride, dim=3)
         return self.conv(x)
 
 
@@ -249,8 +369,9 @@ class DCGANGenerator(nn.Module):
     ``bn_dtype``: the BatchNorm outputs' (None: float32); ``output_f32``: tanh
     on a float32 cast of the last convolution (False: in ``compute_dtype``).
     The Dense and the up-stages feed a float32 BatchNorm and so return their
-    float32 sums, and so does the last convolution under ``output_f32``
-    (module docstring).
+    float32 sums, and so does the last convolution under ``output_f32``;
+    every product differentiates as :class:`_GeneratorProduct` (module
+    docstring).
     """
 
     def __init__(self, latent_size: int = 100, init_hw: Tuple[int, int] = (4, 4),
@@ -273,31 +394,32 @@ class DCGANGenerator(nn.Module):
         h0, w0 = self.init_hw
         self.dense = nn.Linear(latent_size, h0 * w0 * init_features, bias=False)
         self.f32_sums = True  # the Dense's; each convolution has its own
-        self.dense_bn = BatchNorm(h0 * w0 * init_features, dtype=bn_dtype)
+        bn_kw = dict(dtype=bn_dtype, grad_dtype=compute_dtype)
+        self.dense_bn = BatchNorm(h0 * w0 * init_features, **bn_kw)
         ups, bns, ch = [], [], init_features
         for features, stride in blocks:
             ups.append(Upsample(ch, features, stride, upsample, compute_dtype, f32_sums=True))
-            bns.append(BatchNorm(features, dtype=bn_dtype))
+            bns.append(BatchNorm(features, **bn_kw))
             ch = features
         self.ups = nn.ModuleList(ups)
         self.bns = nn.ModuleList(bns)
         final_kw = dict(compute_dtype=compute_dtype, f32_sums=output_f32)
         self.final = (Upsample(ch, out_channels, final_stride, upsample, **final_kw)
                       if final_transpose
-                      else SameConv2d(ch, out_channels, final_stride, bias=False, **final_kw))
+                      else SameConv2d(ch, out_channels, final_stride, bias=False, f32_grads=True,
+                                      **final_kw))
         init_weights(self, generator)
 
     def forward(self, z):
         h0, w0 = self.init_hw
         dt = self.compute_dtype
-        x = _leaky(self.dense_bn(_product(F.linear, _cast(z, dt), _cast(self.dense.weight, dt),
-                                          f32_sums=self.f32_sums)))
+        x = _leaky(self.dense_bn(_generator_product(z, self.dense.weight, dt, self.f32_sums)))
         # flax reshapes the Dense output as NHWC; NCHW from there on.
         x = x.reshape(x.shape[0], h0, w0, self.init_features).permute(0, 3, 1, 2)
         for up, bn in zip(self.ups, self.bns):
             x = _leaky(bn(up(x)))
         x = self.final(x)
-        return torch.tanh(x.to(torch.float32) if self.output_f32 else x)
+        return _tanh(x.to(torch.float32) if self.output_f32 else x)
 
 
 class DCGANDiscriminator(nn.Module):

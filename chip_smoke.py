@@ -92,7 +92,11 @@ Phases, each of which raises on failure:
     in turns, chunked and ``fit`` images/s of float32, ``--bf16`` and
     ``--bf16 --fast_gen``, capture seconds, the graphs' pools and ``fit``'s
     peak; and a profile of a replayed chunk of each (top kernels, busy share,
-    the blur's and the copies' share, TFLOP/s);
+    the blur's and the copies' share, TFLOP/s); the ``--bf16`` step against
+    the same step with the generator's backward rounded as before it kept
+    JAX's float32 sums (the losses, the critic's state and the BatchNorm
+    statistics bit-equal, the generator's gradient apart), and bench's
+    ``--bf16`` / ``--bf16 --fast_gen`` step with each backward in turns;
 14. serving, on phase 7's run directory: ``generate_samples.main`` in this
     process writes the 64-image grid blurred at σ 0.5 with one kernel launch,
     held against the plain blur of the same samples, and the kernel is timed
@@ -161,7 +165,10 @@ Phases, each of which raises on failure:
     --no_peak`` (bfloat16, b32): four arm lines (``full``, ``no_gen``,
     ``no_gp``, ``no_blur``), each correct with 6 / 4 / 3 / 0 blur launches an
     eager step, and the ``summary_ms`` line, its marginals ``full`` minus
-    each arm;
+    each arm; then ``--blur_ab`` at 28², 64², 128² and 256² (b32, 96 planes,
+    ``--min-seconds 0.1``): a line per arm and resolution, each correct (the
+    kernel's blur held to the plain one's before any timing), on this card,
+    the kernel's time beside the plain version's and its bound;
 19. the quality check's train side: ``quality.train`` in this process on
     ``mnist`` (3,200 examples, float32), ``celeba64_sharp --bf16`` (640) and
     the heavy-blur ``celeba64`` (640, float32, σ₀ 5, where the blur is no
@@ -303,6 +310,9 @@ BENCH_RUNS = (("default", [], 6), ("f32", ["--f32", "--no_peak"], 6),
 BENCH_TIMEOUT = 300.0
 # ``bench --ablation``'s arms and the blur launches of one eager step of each.
 ABLATION_LAUNCHES = {"full": 6, "no_gen": 4, "no_gp": 3, "no_blur": 0}
+# ``bench --blur_ab``: MNIST's, the quality runs', the slice's and the JAX
+# script's second resolution; each arm's run grown to this many seconds.
+BLUR_AB_RESOLUTIONS, BLUR_AB_MIN_SECONDS = (28, 64, 128, 256), 0.1
 # Phase 19: the quality check's runs (configuration, examples, arm), seed 0;
 # the keys of the meta that benchmarks/quality_parity.py train_ours writes for
 # a plain run, and the device's fields the port adds; the 64² blur timings'
@@ -1557,140 +1567,106 @@ def recorded_critic_grad_norms(state):
         step_mod._apply = apply
 
 
-class _Float32Sums:
-    """``torch.nn.functional`` whose convolutions and dense product, given
-    bfloat16 operands, return their float32 sums unrounded: a copy of the
-    ``--mode generator_f32_sums`` harness of ``tests/torch_tpu_precision.py``
-    that the card's ``celeba64_sharp --bf16`` quality runs trained under
-    before ``--bf16`` kept those sums itself (``models/dcgan.py``'s
-    ``f32_sums``)."""
-
-    def __getattr__(self, name):
-        return getattr(torch.nn.functional, name)
-
-    @staticmethod
-    def _f32(fn, x, w, *args, **kw):
-        if x.dtype != torch.bfloat16:
-            return fn(x, w, *args, **kw)
-        return fn(x.float(), w.float(), *[a.float() if torch.is_tensor(a) else a for a in args],
-                  **kw)
-
-    def conv2d(self, x, w, bias=None, **kw):
-        return self._f32(torch.nn.functional.conv2d, x, w, bias, **kw)
-
-    def conv_transpose2d(self, x, w, *args, **kw):
-        return self._f32(torch.nn.functional.conv_transpose2d, x, w, *args, **kw)
-
-    def linear(self, x, w, bias=None):
-        return self._f32(torch.nn.functional.linear, x, w, bias)
-
-
 @contextlib.contextmanager
-def harness_f32_sums():
-    """Inside, every generator forward runs with :class:`_Float32Sums` (the
-    harness's ``generator_f32_sums``; TF32 off, as the entry points run)."""
+def rounding_backward():
+    """Inside, the bfloat16 generator differentiates as ``--bf16`` did before
+    its backward kept the float32 sums of JAX's default compile: autograd
+    through its products' casts (each input and weight gradient rounded to
+    bfloat16, the cotangent not), BatchNorm's casts of a float32 input
+    passing its gradients through unrounded, ``torch.tanh``'s own derivative
+    (the transposed-convolution generator's; the forward is the same)."""
     from blurred_gan_tpu_torch.models import dcgan
 
-    forward = dcgan.DCGANGenerator.forward
+    def product(x, w, dtype, f32_sums, conv=None):
+        if dtype == torch.float32:
+            return dcgan._bilinear(conv, x, w)
+        xr, wr = x.to(dtype), w.to(dtype)
+        return (dcgan._bilinear(conv, xr.float(), wr.float()) if f32_sums
+                else dcgan._bilinear(conv, xr, wr))
 
-    def gen_forward(self, z):
-        functional, dcgan.F = dcgan.F, _Float32Sums()
-        try:
-            return forward(self, z)
-        finally:
-            dcgan.F = functional
-
-    dcgan.DCGANGenerator.forward = gen_forward
+    saved = dcgan._generator_product, dcgan.BatchNorm._f32, dcgan._tanh
+    dcgan._generator_product = product
+    dcgan.BatchNorm._f32 = lambda self, x: x.to(torch.float32)
+    dcgan._tanh = torch.tanh
     try:
         yield
     finally:
-        dcgan.DCGANGenerator.forward = forward
+        dcgan._generator_product, dcgan.BatchNorm._f32, dcgan._tanh = saved
 
 
-def rounding_generator(generator):
-    """``generator`` as ``--bf16`` ran before its products kept their float32
-    sums: every product's result rounded to bfloat16."""
-    for m in generator.modules():
-        if hasattr(m, "f32_sums"):
-            m.f32_sums = False
-    return generator
-
-
-def bf16_landing_step(workdir, reals):
-    """Phase 13g: one ``--bf16`` step through the entry point's trainer
-    against the same step of a trainer whose generator rounds every product
-    (:func:`rounding_generator`) run inside the harness the card's quality runs
-    used (:func:`harness_f32_sums`), from the same weights, draws and reals
-    under deterministic cuDNN: the losses and every state tensor bit-equal.
-    The rounding generator outside the harness differs (the check can
-    tell). Returns the largest loss difference of that one."""
+def bf16_backward_step(workdir, reals):
+    """Phase 13g: one ``--bf16`` step through the entry point's trainer with
+    the generator's float32 backward (landed) against the same step under
+    :func:`rounding_backward` (before), from the same weights, draws and
+    reals under deterministic cuDNN: the losses, the critic's state and the
+    generator's BatchNorm statistics bit-equal (the forward is unchanged),
+    the generator's Adam moments not. Returns the relative L2 between the
+    two generator gradients (Adam's first moment after one step)."""
     from blurred_gan_tpu_torch.train_celeba import build_trainer
 
     torch.backends.cudnn.deterministic = True
     out = {}
     try:
-        for name in ("landed", "harness", "rounding"):
-            trainer, _ = build_trainer(smoke_args(os.path.join(workdir, f"landing_{name}"),
+        for name in ("landed", "before"):
+            trainer, _ = build_trainer(smoke_args(os.path.join(workdir, f"backward_{name}"),
                                                   bf16=True), feeders=[])
-            if name != "landed":
-                rounding_generator(trainer.gan.generator)
-            with harness_f32_sums() if name == "harness" else contextlib.nullcontext():
+            with rounding_backward() if name == "before" else contextlib.nullcontext():
                 metrics, _ = trainer.step_fn(trainer.state, reals, SIGMA0)
             torch.cuda.synchronize()
+            params = {f"g.{k}" for k, _ in trainer.state.generator.named_parameters()}
             out[name] = ({k: float(v) for k, v in metrics.items()},
                          {k: (v.clone() if torch.is_tensor(v) else v)
                           for k, v in state_tensors(trainer.state).items()})
             trainer.close()
     finally:
         torch.backends.cudnn.deterministic = False
-    (landed, landed_state), (harness, harness_state) = out["landed"], out["harness"]
-    unequal = [k for k in landed if landed[k] != harness[k]] + [
-        k for k, v in landed_state.items()
-        if not (torch.equal(v, harness_state[k]) if torch.is_tensor(v) else v == harness_state[k])]
+    (landed, landed_state), (before, before_state) = out["landed"], out["before"]
+    # The generator's parameters after Adam's first step (lr·sign(g) for
+    # most elements) and its moments may differ; everything else may not.
+    moved = params | {k for k in landed_state if k.startswith("g_opt.")}
+    unequal = [k for k in landed if landed[k] != before[k]] + [
+        k for k, v in landed_state.items() if k not in moved
+        and not (torch.equal(v, before_state[k]) if torch.is_tensor(v) else v == before_state[k])]
     if unequal:
-        raise RuntimeError(f"phase 13: the landed --bf16 step differs from the rounding "
-                           f"generator's inside the harness in {unequal[:10]}")
-    rounding = out["rounding"][0]
-    apart = max(abs(rounding[k] - landed[k]) for k in ("disc_loss", "gen_loss"))
+        raise RuntimeError(f"phase 13: the --bf16 step with the float32 backward differs from "
+                           f"the rounding backward's in {unequal[:10]}")
+    keys = sorted(k for k in landed_state if k.startswith("g_opt.") and k.endswith(".exp_avg"))
+    grads = [torch.cat([s[k].flatten().double() for k in keys]) for s in (landed_state,
+                                                                          before_state)]
+    apart = float(torch.linalg.vector_norm(grads[0] - grads[1])
+                  / torch.linalg.vector_norm(grads[1]))
     if apart == 0.0:
-        raise RuntimeError("phase 13: the rounding generator's step equals the landed one")
-    log(f"[bf16] landed --bf16 step (the generator's float32 sums) against the rounding "
-        f"generator inside tests/torch_tpu_precision.py's former generator_f32_sums harness, "
-        f"deterministic cuDNN: losses and {len(landed_state)} state tensors bit-equal "
-        f"(d_loss {landed['disc_loss']:+.8f}, gen_loss {landed['gen_loss']:+.8f}); the rounding "
-        f"generator alone {apart:.3e} away")
+        raise RuntimeError("phase 13: the rounding backward's generator gradient equals the "
+                           "float32 backward's")
+    log(f"[bf16] --bf16 step with the generator's float32 backward against the rounding "
+        f"backward, deterministic cuDNN: losses (d_loss {landed['disc_loss']:+.8f}, gen_loss "
+        f"{landed['gen_loss']:+.8f}), the critic's state and the BatchNorm statistics "
+        f"bit-equal; the generator's gradient {apart:.3e} apart (relative L2 over "
+        f"{len(keys)} tensors)")
     return apart
 
 
-def bf16_landing_rates(card):
+def bf16_backward_rates(card):
     """Phase 13h: bench's fixed-batch step (``bench.fixed_batch_window``:
     CelebA-128, b32, a CUDA graph replayed 50 steps a window) for ``--bf16``
-    and ``--bf16 --fast_gen``, the generator with its float32 sums (landed)
-    and rounding every product (before), one window of each in turns over
-    ``bench.WINDOWS`` rounds after a warm-up. Returns the medians by
-    configuration."""
+    and ``--bf16 --fast_gen``, the generator's float32 backward (landed) and
+    the rounding backward (before, captured inside
+    :func:`rounding_backward`), one window of each in turns over
+    ``bench.WINDOWS`` rounds after the warm-up that captures. Returns the
+    medians by configuration."""
     from blurred_gan_tpu_torch import bench
 
     device = torch.device("cuda", torch.cuda.current_device())
     res, batch, steps = bench.CARD_DEFAULTS
-    make_gan, windows = bench.make_gan, {}
-
-    def rounded(*args, **kw):
-        gan = make_gan(*args, **kw)
-        rounding_generator(gan.generator)
-        return gan
-
-    try:
-        for flags in ([], ["--fast_gen"]):
-            args = bench.parse_args(flags)
-            for sums in (True, False):
-                bench.make_gan = make_gan if sums else rounded
-                windows[" ".join(["--bf16", *flags]), sums] = bench.fixed_batch_window(
-                    args, device, torch.bfloat16, res, batch, steps)
-    finally:
-        bench.make_gan = make_gan
-    for window in windows.values():
-        window()
+    windows = {}
+    for flags in ([], ["--fast_gen"]):
+        args = bench.parse_args(flags)
+        for landed in (True, False):
+            with contextlib.nullcontext() if landed else rounding_backward():
+                window = bench.fixed_batch_window(args, device, torch.bfloat16, res, batch,
+                                                  steps)
+                window()
+            windows[" ".join(["--bf16", *flags]), landed] = window
     order = list(windows)
     rates = {key: [] for key in order}
     for rep in range(bench.WINDOWS):
@@ -1702,10 +1678,10 @@ def bf16_landing_rates(card):
         out[flags] = {"landed_img_per_s": landed, "before_img_per_s": before,
                       "landed_runs": rates[flags, True], "before_runs": rates[flags, False]}
         log(f"[bf16] bench {flags} (b{batch}, {res}², windows of {steps} replayed steps in "
-            f"turns): the generator's float32 sums {landed:.2f} img/s "
+            f"turns): the generator's float32 backward {landed:.2f} img/s "
             f"({batch / landed * 1e3:.3f} ms/step; runs "
-            f"{', '.join(f'{r:.1f}' for r in rates[flags, True])}) against rounding "
-            f"{before:.2f} img/s ({batch / before * 1e3:.3f} ms/step; runs "
+            f"{', '.join(f'{r:.1f}' for r in rates[flags, True])}) against the rounding "
+            f"backward {before:.2f} img/s ({batch / before * 1e3:.3f} ms/step; runs "
             f"{', '.join(f'{r:.1f}' for r in rates[flags, False])}): "
             f"{landed / before:.3f}x on {card}")
     del windows
@@ -1883,8 +1859,8 @@ def run_bf16(blur_cuda, dataset, workdir, card, f32_default):
     fit_launches = {name: bf16_fit(blur_cuda, workdir, name, flags)
                     for name, flags in PRECISIONS[1:]}
     check_bf16_steps(bf16_first_steps(workdir, reals))
-    landing = {"rounding_loss_apart": bf16_landing_step(workdir, reals),
-               "bench": bf16_landing_rates(card)}
+    landing = {"backward_grad_apart": bf16_backward_step(workdir, reals),
+               "bench": bf16_backward_rates(card)}
     gc.collect()
     torch.cuda.empty_cache()
     templates = {name: precision_template(flags) for name, flags in PRECISIONS}
@@ -3188,6 +3164,48 @@ def run_ablation(workdir, card):
     return {"arms": arms, "summary": summary, "seconds": seconds}
 
 
+def run_blur_ab(workdir, card):
+    """Phase 18 (c): ``python -m blurred_gan_tpu_torch.bench --blur_ab`` at
+    ``BLUR_AB_RESOLUTIONS`` in a process of its own: a line per (impl,
+    resolution), each correct and on this card; beside each resolution the
+    kernel and the plain blur alone at the chain's first σ, 2.5, on fixed
+    band matrices (:func:`time_blur_graphed`: replayed from a CUDA graph as
+    the chain is, with the call's bound). Returns the lines, those timings
+    and the seconds."""
+    argv = ["-m", "blurred_gan_tpu_torch.bench", "--blur_ab", "--resolutions",
+            ",".join(map(str, BLUR_AB_RESOLUTIONS)), "--min-seconds", str(BLUR_AB_MIN_SECONDS)]
+    rc, output, seconds = run_processes({"blur_ab": (argv, HERE, None)}, workdir,
+                                        timeout=BENCH_TIMEOUT, what="phase 18")["blur_ab"]
+    if rc != 0:
+        raise RuntimeError(f"phase 18, bench --blur_ab: exit code {rc}\n{output[-3000:]}")
+    from blurred_gan_tpu_torch.ops.blur import blur_matrix
+
+    lines = [json.loads(line) for line in output.splitlines() if line.startswith('{"impl"')]
+    got = sorted((line["resolution"], line["impl"]) for line in lines)
+    bad = [line for line in lines if line["correct"] is not True
+           or not card.startswith(line["device"]) or not line["us_per_blur"] > 0]
+    if got != sorted((r, i) for r in BLUR_AB_RESOLUTIONS for i in ("cuda", "torch")) or bad:
+        raise RuntimeError(f"phase 18, bench --blur_ab: lines {got}, not correct or off "
+                           f"{card}: {bad}")
+    from blurred_gan_tpu_torch.ops import blur_cuda
+
+    alone = {}
+    for res in BLUR_AB_RESOLUTIONS:
+        by_impl = {line["impl"]: line for line in lines if line["resolution"] == res}
+        planes = 3 * by_impl["cuda"]["batch"]
+        alone[res] = time_blur_graphed(blur_cuda, blur_matrix, torch.device("cuda"), planes,
+                                       res, 2.5, card)
+        kernel, plain = by_impl["cuda"]["us_per_blur"], by_impl["torch"]["us_per_blur"]
+        log(f"[bench] --blur_ab {planes}x{res}x{res}: kernel {kernel:.2f} us/blur (rounds "
+            f"{by_impl['cuda']['us_per_blur_rounds']}, {by_impl['cuda']['iters']} iters), plain "
+            f"{plain:.2f} (rounds {by_impl['torch']['us_per_blur_rounds']}), each with its band "
+            f"matrices built from sigma; the calls alone at sigma 2.5 "
+            f"{alone[res]['ms'] * 1e3:.2f} / {alone[res]['plain_ms'] * 1e3:.2f} us, bound "
+            f"{alone[res]['bound_ms'] * 1e3:.2f} us by {alone[res]['bound_by']}; kernel "
+            f"{plain / kernel:.2f}x the plain version's speed in the chain on {card}")
+    return {"lines": lines, "alone": alone, "seconds": seconds}
+
+
 def quality_run(blur_cuda, workdir, config, examples, flags, plain=False):
     """One ``quality.train`` run in this process, seed 0, with the blur
     kernel's launches counted by step (``plain``: the plain blur). Returns
@@ -3402,6 +3420,7 @@ def main():
         with phase("18 bench"):
             bench = run_bench(workdir, chunked_rate, card)
             bench["ablation"] = run_ablation(workdir, card)
+            bench["blur_ab"] = run_blur_ab(workdir, card)
         with phase("19 quality"):
             quality = run_quality(blur_cuda, blur_matrix, device, workdir, card)
 
@@ -3450,8 +3469,9 @@ def data_parallel_only():
 
 
 def bf16_ablation_only():
-    """``chip_smoke.py --bf16_ablation``: the build, phase 13's landed --bf16
-    step and its bench timings, and phase 18's ``bench --ablation`` alone."""
+    """``chip_smoke.py --bf16_ablation``: the build, phase 13's --bf16 step
+    against the rounding backward and their bench timings, and phase 18's
+    ``bench --ablation`` and ``bench --blur_ab`` alone."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
     from blurred_gan_tpu_torch.data.pipeline import synthetic_dataset
@@ -3465,12 +3485,14 @@ def bf16_ablation_only():
     dataset = synthetic_dataset((RES, RES, 3), num_examples=NUM_EXAMPLES)
     reals = torch.from_numpy(next(dataset.batches(BATCH, seed=1))).to("cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        with phase("13 landed bf16"):
-            landing = {"rounding_loss_apart": bf16_landing_step(workdir, reals),
-                       "bench": bf16_landing_rates(card)}
-        with phase("18 bench --ablation"):
+        with phase("13 bf16 backward"):
+            landing = {"backward_grad_apart": bf16_backward_step(workdir, reals),
+                       "bench": bf16_backward_rates(card)}
+        with phase("18 bench --ablation, --blur_ab"):
             ablation = run_ablation(workdir, card)
-    print(json.dumps({"landing": landing, "ablation": ablation}), flush=True)
+            blur_ab = run_blur_ab(workdir, card)
+    print(json.dumps({"landing": landing, "ablation": ablation, "blur_ab": blur_ab}),
+          flush=True)
 
 
 def first_step_only(root):

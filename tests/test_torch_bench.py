@@ -111,8 +111,11 @@ def test_flags_are_the_root_scripts():
     assert "--gen_gate" in root and len(root) > 10
     args = bench.parse_args([])
     parser_flags = {f"--{k}" for k in vars(args)}
-    # --ablation: benchmarks/step_ablation.py, a mode here, not a second script.
-    assert parser_flags == (root - {"--gen_gate"}) | {"--device", "--ablation"}
+    # --ablation and --blur_ab (with its --resolutions and --min-seconds):
+    # benchmarks/step_ablation.py and benchmarks/blur_ab.py, modes here, not
+    # second scripts (tests/test_torch_ablation.py, tests/test_torch_blur_ab.py).
+    assert parser_flags == (root - {"--gen_gate"}) | {
+        "--device", "--ablation", "--blur_ab", "--resolutions", "--min_seconds"}
     assert args.device == "cuda" and args.blur_impl == "auto"
     with pytest.raises(SystemExit):  # the port's names: cuda / torch for pallas / einsum
         bench.parse_args(["--blur_impl", "pallas"])

@@ -28,15 +28,16 @@ Tolerances, each from bfloat16's roundoff (8 significant bits, a unit of
   rounding boundary (measured <= 2^-8), and relative L2 <= 2e-3;
 - critic scores: atol 2e-4 (measured 4e-8; JAX's own gap 1.1e-3);
 - the generator's gradient for a fixed cotangent: relative L2 3e-2 per
-  tensor (measured <= 6e-3 without ``fast_gen``, <= 9e-3 with it: the port
-  rounds the backward's products as the compile without excess precision
-  does, the default compile keeps some as float32 sums; JAX's own gap
-  between its two compiles 1e-2 to 7e-2);
+  tensor (measured <= 6.1e-3 without ``fast_gen``, <= 3.2e-5 with it: the
+  port keeps the backward's float32 sums where the default compile does,
+  and last-bit differences in BatchNorm's float32 sums become bfloat16
+  units further up without ``fast_gen``, ``tests/test_torch_bf16_backward.py``;
+  JAX's own gap between its two compiles 9e-3 to 9e-2);
 - one train step against ``mixed_step``: losses rtol 1e-5 / atol 1e-4
   (measured <= 3.3e-5); the critic's gradient, relative L2 over the network
   1e-2 (measured 4.5e-3; JAX's own gap 1.8e-2) and per weight 1e-3
   (measured 1e-4); the generator's, relative L2 over the network 3e-2 with
-  ``fast_gen`` (measured 6.6e-3) and 1e-1 without (measured 5.3e-3);
+  ``fast_gen`` (measured 3.6e-3) and 1e-1 without (measured 3.8e-3);
   post-step parameters atol 2e-6 where both gradients are at least 1e-4
   and agree in sign (Adam's first step moves an element by
   ``lr·g/(|g| + 1e-7)``, so two such gradients part it by at most

@@ -399,3 +399,47 @@ def test_dropped_trainers_give_their_memory_back(cuda_device, tmp_path):
         torch.cuda.empty_cache()
         levels.append(torch.cuda.memory_allocated())
     assert all(abs(level - levels[0]) <= 2 ** 20 for level in levels[1:]), levels
+
+
+@pytest.mark.parametrize("conv", [None, (1, 0, False), (2, 1, True), (1, 2, True)],
+                         ids=["dense", "conv", "conv_transpose_s2", "conv_transpose_s1"])
+def test_generator_product_backward_matches_the_cpu(cuda_device, conv):
+    # The bfloat16 generator's product (models/dcgan.py _GeneratorProduct):
+    # its float32 sums and both gradients on the card against the CPU's, at
+    # the gradients' tolerance; the Dense's weight gradient is rounded to
+    # bfloat16 on both, so one unit (2^-7 relative) apart at most.
+    from blurred_gan_tpu_torch.models.dcgan import _generator_product
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 16) if conv is None else (2, 16, 6, 6), generator=gen)
+    w = torch.randn((32, 16) if conv is None else (16, 8, 5, 5) if conv[2] else (8, 16, 5, 5),
+                    generator=gen)
+    out = {}
+    for device in ("cpu", cuda_device):
+        xd, wd = (t.to(device).requires_grad_(True) for t in (x, w))
+        y = _generator_product(xd, wd, torch.bfloat16, True, conv)
+        g = torch.linspace(-1, 1, y.numel(), device=device).reshape(y.shape)
+        gx, gw = torch.autograd.grad(y, (xd, wd), g)
+        out[str(device)] = [t.cpu() for t in (y, gx, gw)]
+    (y, gx, gw), (y_c, gx_c, gw_c) = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(y_c, y, **FWD)
+    torch.testing.assert_close(gx_c, gx, **GRAD)
+    torch.testing.assert_close(gw_c, gw, **(dict(rtol=2 ** -7, atol=1e-5) if conv is None
+                                            else GRAD))
+
+
+def test_blur_ab_on_the_card(cuda_device, capsys):
+    # bench --blur_ab at 64²: one line per arm, each correct on this card,
+    # the kernel's arm launching the kernel (in its warm-up and capture).
+    import json
+
+    from blurred_gan_tpu_torch import bench
+
+    before = blur_cuda.launch_count
+    bench.main(["--blur_ab", "--resolutions", "64", "--min-seconds", "0.05"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert [line["impl"] for line in lines] == ["torch", "cuda"]
+    assert blur_cuda.launch_count - before >= 2 * bench.BLUR_AB_CHUNK
+    for line in lines:
+        assert line["correct"] is True and line["backend"] == "torch-cuda"
+        assert line["device"] in torch.cuda.get_device_name(0) and line["us_per_blur"] > 0
