@@ -11,7 +11,7 @@ that package's numpy-only modules it keeps as its own copies.
 - ``native``           the host JPEG / PNG decoder (C++, ctypes, built by g++)
 - ``sched.blur``       the open-loop σ decay and the adaptive σ controller
 - ``ops.blur``         blur sizing policy, band matrices, ``blur_images``
-- ``ops.blur_cuda``    the kernel's build, wrapper and autograd Function
+- ``ops.blur_cuda``    the kernel's build, wrappers and autograd Functions (σ mode, T mode)
 - ``models``           DCGAN generator / critic, the ``GaussianBlur`` layer
 - ``losses.wgan``      WGAN-GP losses and the gradient penalty
 - ``train``            hyperparameters, GAN / TrainState, the step, hooks,

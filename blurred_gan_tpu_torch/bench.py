@@ -43,9 +43,11 @@ Modes, each the port of a function of the root script:
   kernel (``cuda``) against the plain two-matmul version (``torch``), at each
   of ``--resolutions`` on a ``(--batch, 3, R, R)`` float32 batch drawn on the
   device from a seeded generator. A run chains blurs, each on the last one's
-  output at σ = 2.5·0.999^i with the band matrices built from σ on the device
-  every call, as the JAX script's scan: on the card :data:`BLUR_AB_CHUNK` of
-  them captured once as a CUDA graph and replayed, timed by CUDA events.
+  output at σ = 2.5·0.999^i, σ a tensor on the device, as the JAX script's
+  scan: the kernel's σ mode builds its taps from σ in the launch, and only
+  the plain arm builds the two band matrices from σ every call. On the card
+  :data:`BLUR_AB_CHUNK` of them are captured once as a CUDA graph and
+  replayed, timed by CUDA events.
   Each arm's run grows until it costs ``--min-seconds``; then the arms are
   timed in turns over ``WINDOWS`` rounds. Before any timing each arm's blur
   is held to the other's (``BLUR_AB_TOL``): if they differ the one line says
@@ -703,11 +705,12 @@ def blur_ab(args: argparse.Namespace) -> list:
                 rounds[impl].append(chains[impl].seconds(chunks[impl]) / iters * 1e6)
         planes = batch * 3
         for impl in BLUR_AB_IMPLS:
-            us = statistics.median(rounds[impl])
+            shown = [round(u, 3) for u in rounds[impl]]
+            us = statistics.median(shown)  # the median of the rounds as printed
             lines.append(dict(impl=impl, resolution=res, batch=batch,
                               iters=chunks[impl] * BLUR_AB_CHUNK, us_per_blur=round(us, 2),
                               gflops=round(2 * planes * res ** 3 * 2 / (us * 1e-6) / 1e9, 1),
-                              **base, us_per_blur_rounds=[round(u, 3) for u in rounds[impl]],
+                              **base, us_per_blur_rounds=shown,
                               max_abs_err=err, correct=True))
     return lines
 

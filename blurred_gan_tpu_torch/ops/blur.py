@@ -15,7 +15,10 @@ a σ held in a device tensor can change between calls without any rebuild.
 
 Images are NCHW. The blur is ``out[p] = T_h @ X[p] @ T_w`` for every
 ``(N·C)`` plane, which the hand-written kernel in ``ops/blur_cuda.py`` computes
-on the GPU. The arithmetic is float32 whatever the images' dtype, and the
+on the GPU. On the main path it takes σ itself and builds the taps of ``T``
+(:func:`band_taps`) on the device, so no band matrix is built; only a σ that
+requires grad goes through :func:`blur_matrix` and the kernel's T mode, so that
+σ's gradient flows through the matrices. The arithmetic is float32 whatever the images' dtype, and the
 result takes the images' dtype (bfloat16 fakes under ``--fast_gen``), as the
 JAX package's casts around its kernel do. Zero-padded SAME borders: border rows of ``T`` sum to less than 1
 (normalised by the full kernel sum, not per row).
@@ -28,7 +31,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from blurred_gan_tpu_torch.ops.blur_cuda import blur_images_fused, blur_planes_reference
+from blurred_gan_tpu_torch.ops.blur_cuda import (
+    blur_images_fused, blur_images_sigma, blur_planes_reference)
+
+# Calls of :func:`blur_matrix` since the last reset (the band matrices built).
+# Read and reset it as ``blur.matrix_count``.
+matrix_count = 0
 
 
 def appropriate_kernel_size(std):
@@ -90,6 +98,19 @@ def masked_gaussian_taps(scale, resolution: int, device=None) -> torch.Tensor:
     return g / torch.sum(g)
 
 
+def band_taps(scale, resolution: int):
+    """``(half, taps)``: the half-width as an int and the ``2·half + 1`` taps
+    at offsets ``-half .. half``, normalised by their sum, as the blur
+    kernel's σ mode builds them on the device from the same float32 policy
+    (``T[i, j] = taps[half + j - i]``, zero off the band). Reads σ back to the
+    host; nothing on the main path calls it."""
+    sigma, half = effective_blur_params(scale, resolution)
+    n = int(half)
+    d = torch.arange(-n, n + 1, dtype=torch.float32)
+    g = torch.exp(-(d ** 2) / (2.0 * sigma ** 2))
+    return n, g / torch.sum(g)
+
+
 def blur_matrix(scale, dim: int, resolution: int | None = None,
                 device=None) -> torch.Tensor:
     """Banded Toeplitz ``T`` with ``T[i, j] = taps[j - i]``, shape ``(dim, dim)``.
@@ -97,6 +118,8 @@ def blur_matrix(scale, dim: int, resolution: int | None = None,
     ``resolution`` is the policy resolution (the kernel is clipped to
     ``max(h, w)``); it defaults to ``dim``.
     """
+    global matrix_count
+    matrix_count += 1
     resolution = dim if resolution is None else resolution
     sigma, half = effective_blur_params(scale, resolution, device)
     idx = torch.arange(dim, dtype=torch.float32, device=sigma.device)
@@ -116,22 +139,27 @@ def blur_matrix(scale, dim: int, resolution: int | None = None,
 def blur_images(images: torch.Tensor, scale, *, impl: str = "auto") -> torch.Tensor:
     """Gaussian-blur an NCHW batch with σ ``scale`` (float or tensor).
 
-    ``impl``: ``"auto"``/``"cuda"`` go through the ``BlurPlanes`` autograd
-    Function, which launches the hand-written kernel on a CUDA tensor and
-    runs its plain version on a CPU tensor. ``"torch"`` is the plain
+    ``impl``: ``"auto"``/``"cuda"`` go through the kernel's σ mode (the
+    ``BlurSigma`` autograd Function: one launch a call, forward or backward, on
+    a CUDA tensor, and its plain version on a CPU tensor), or through its T
+    mode on the band matrices where σ requires grad. ``"torch"`` is the plain
     two-``matmul`` version on any device (the A/B baseline).
     """
     if impl not in ("auto", "cuda", "torch"):
         raise ValueError(f"impl must be 'auto', 'cuda' or 'torch', got {impl!r}")
     n, c, h, w = images.shape
     resolution = max(h, w)
-    t_h = blur_matrix(scale, h, resolution, device=images.device)
-    t_w = blur_matrix(scale, w, resolution, device=images.device)
     if impl == "torch":
+        t_h = blur_matrix(scale, h, resolution, device=images.device)
+        t_w = blur_matrix(scale, w, resolution, device=images.device)
         x = images.to(torch.float32).reshape(n * c, h, w)
         out = blur_planes_reference(x, t_h, t_w)
         return out.reshape(n, c, h, w).to(images.dtype)
-    return blur_images_fused(images, t_h, t_w)
+    sigma = _sigma_tensor(scale, images.device)
+    if sigma.requires_grad:
+        return blur_images_fused(images, blur_matrix(sigma, h, resolution),
+                                 blur_matrix(sigma, w, resolution))
+    return blur_images_sigma(images, sigma)
 
 
 def gaussian_blur_depthwise(images: torch.Tensor, std, kernel_size: int) -> torch.Tensor:

@@ -14,34 +14,39 @@ Phases, each of which raises on failure:
 
 1. require a CUDA device; print the card's name and power limit (nvidia-smi);
 2. build the blur kernel from ``blurred_gan_tpu_torch/csrc`` with nvcc;
-3. hold the kernel against its plain PyTorch version (forward, backward and
-   the penalty's double backward) at 28², 64², 128² (192 planes), 256²,
-   16x32 and 36x30, then at 192 planes of 128² with band matrices across the σ range
-   (the 3-tap floor, σ = 5, the clip at σ = 100), a random dense T and a T
-   with an all-zero row tile and column tile, then at MNIST's shapes (64 and
-   32 planes of 28²) at its σ of phase 11 (0.05 and 23.5);
+3. hold the kernel's σ mode and its T mode each against its plain PyTorch
+   version (forward, backward and the penalty's double backward) at 28², 64²,
+   128² (192 planes), 256², 16x32 and 36x30, then at 192 planes of 128² across
+   the σ range (the 3-tap floor, 0.3, 2.5, σ = 5, 23.5, the clip at σ = 100),
+   then T mode alone on a random dense T and a T with an all-zero row tile and
+   column tile, then both at MNIST's shapes (64 and 32 planes of 28²) at its σ
+   of phase 11 (0.05 and 23.5);
 4. the slice: ``Trainer.fit`` at the full CelebA-128 widths, batch 32, float32,
    σ₀ = 5, on the synthetic corpus, for 12 steps; losses finite, σ from
    ``BlurDecayController``, the kernel launched the same positive number of
-   times every step, neither jax nor the JAX package ever imported;
+   times every step, all in σ mode with no band matrix built, neither jax nor
+   the JAX package ever imported;
 5. one step with the kernel against one step with the plain blur from the same
-   weights and draws; then the step's images/s with each, and the kernel's
-   time per call against the plain version's and its bound at σ = 5 and
-   σ = 100, for 192 and 96 planes; a profile of a few steps; then ``fit`` and
-   the fixed-batch step with Adam as ``fit`` runs it (non-capturable) and as
-   the chunked mode does (capturable), in turns;
-6. the kernel's occupancy;
+   weights and draws; then the step's images/s with each, and the time per
+   call of the kernel's σ mode, its T mode, the plain version and the two
+   cuBLAS matmuls, each replayed from a CUDA graph, beside σ mode's bound at
+   σ = 5 and σ = 100, for 192 and 96 planes; a profile of a few steps; then
+   ``fit`` and the fixed-batch step with Adam as ``fit`` runs it
+   (non-capturable) and as the chunked mode does (capturable), in turns;
+6. both modes' registers, local memory (spills), blocks per SM and shared
+   memory at 28², 64², 128² and 256²;
 7. the full run: a ``Trainer`` with the entry point's SWD and FID feeders at
-   small cadences, a checkpoint and a sample grid every 192 examples and
-   image summaries every 4 batches, for 12 steps; SWD and FID in
+   small cadences (SWD every 192 examples, FID once, from the first step), a
+   checkpoint and a sample grid every 192 examples and image summaries every
+   4 batches, for 12 steps; SWD and FID in
    ``events.jsonl``, checkpoints within ``max_to_keep``, the grid PNG's size,
    the kernel's launches per step as in phase 4;
 8. resume: a fresh ``Trainer`` on the same run directory restores the latest
    checkpoint bit for bit, and its next step's losses equal the live state's;
-9. evaluation at the users' protocol: SWD over 1000 pairs, random-conv FID
-   and Inception FID (random weights) over 100 pairs, ``Trainer.evaluate``
-   over 1000, each against a reference on a small input and as a share of the
-   50,000-example interval;
+9. evaluation at the users' protocol: SWD over 1000 pairs, Inception FID
+   (random weights) over 100 pairs, ``Trainer.evaluate`` over 1000 (SWD and
+   the random-conv FID), each against a reference on a small input and as a
+   share of the 50,000-example interval;
 10. the chunked mode: ``Trainer.fit_device_resident`` from phase 4's weights,
     data stream and seed, 2 chunks of 6 steps, each step a replay of the
     captured train step: per-step losses equal to those of ``fit`` from the
@@ -56,7 +61,9 @@ Phases, each of which raises on failure:
     during a chunk;
 11. MNIST at its published widths, batch 32: ``python -m
     blurred_gan_tpu_torch.train_mnist --device_resident`` for 3 chunks (its
-    SWD and FID at the first chunk boundary), 2 chunks of 25 against 50 steps
+    SWD and FID at the first chunk boundary; the process runs in phase 14's
+    batch, its start-up and FID's host time beside theirs), 2 chunks of 25
+    against 50 steps
     of ``fit`` (capturable Adam, deterministic cuDNN: every step's losses and
     σ), chunked against ``fit`` images/s, an adaptive chunked run whose
     controller stops inside a chunk against the run that stopped there, and
@@ -105,8 +112,9 @@ Phases, each of which raises on failure:
     blurred_gan_tpu_torch.generate_samples`` (the random grid, the
     ``--interpolate`` grid, ``--blur_std``, and ``--ema``, which must exit
     with its message), ``tools.export_generator`` (its own check at batches 1
-    and 7), ``tools.evaluate_run`` at its defaults and ``tools.score --kid
-    --prdc`` on 1000 samples against 1000 reals; a ``python -c`` that imports
+    and 7), ``tools.evaluate_run`` at its defaults, ``tools.score --kid
+    --prdc`` on 1000 samples against 1000 reals and phase 11's MNIST entry
+    point; a ``python -c`` that imports
     torch alone serves the artifact at batches 1, 7 and 128, held against the
     live generator, as is the artifact moved to the CPU; an EMA artifact of a
     2-step ``--ema_decay 0.999`` run against ``make_sample_fn(use_ema=True)``;
@@ -151,8 +159,9 @@ Phases, each of which raises on failure:
     ``convert_inception`` on a torchvision state dict made from
     ``random_inception_params``, its npz loaded on the card giving the source
     parameters' features;
-18. the bench: ``python -m blurred_gan_tpu_torch.bench`` in a process of its
-    own for each of the default (bfloat16, with the b128 peak), ``--f32
+18. the bench: ``python -m blurred_gan_tpu_torch.bench`` for each of the
+    default (bfloat16, with the b128 peak; in a process of its own, as a user
+    runs it), then through ``bench.main`` in this process ``--f32
     --no_peak`` (its b128 peak cut to pay for ``--ablation``),
     ``--f32 --blur_impl torch --no_peak`` (the plain blur's A/B at b32; its
     b128 peak was cut to pay for phase 19's scoring), ``--f32 --chunked``,
@@ -168,7 +177,7 @@ Phases, each of which raises on failure:
     each arm; then ``--blur_ab`` at 28², 64², 128² and 256² (b32, 96 planes,
     ``--min-seconds 0.1``): a line per arm and resolution, each correct (the
     kernel's blur held to the plain one's before any timing), on this card,
-    the kernel's time beside the plain version's and its bound;
+    and σ mode, T mode and cuBLAS alone beside σ mode's bound;
 19. the quality check's train side: ``quality.train`` in this process on
     ``mnist`` (3,200 examples, float32), ``celeba64_sharp --bf16`` (640) and
     the heavy-blur ``celeba64`` (640, float32, σ₀ 5, where the blur is no
@@ -216,15 +225,19 @@ RES, BATCH, SIGMA0, STEPS, NUM_EXAMPLES = 128, 32, 5.0, 12, 2048
 KERNEL_SHAPES = [(192, 28, 28), (192, 64, 64), (192, 128, 128), (24, 256, 256), (6, 16, 32),
                  (6, 36, 30)]
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)   # float32 both sides, another summation order
-# σ of the band cases: the 3-tap floor, the run's σ₀, the clip to 128 taps.
-SIGMA_SWEEP = (0.1, SIGMA0, 100.0)
+# σ of the band cases: the 3-tap floor, a sub-pixel σ, the bench's σ, the
+# run's σ₀, MNIST's adaptive σ₀, the clip to 128 taps.
+SIGMA_SWEEP = (0.05, 0.3, 2.5, SIGMA0, 23.5, 100.0)
 # The card's published peaks (H100 SXM, 700 W): float32 off the tensor cores,
 # and device memory.
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # as the CPU parity tests
 STEP_TOL = dict(rtol=1e-3, atol=1e-4)  # one full step, kernel vs plain blur
-# Phase 7's cadences (examples, batches) and retention.
+# Phase 7's cadences (examples, batches) and retention; FID's cadence is
+# longer than the run, so it records once, from the first step (each record
+# costs ~14 s of the host's sqrtm, which a second record adds nothing to).
 FULL_EVERY, FULL_SWD_SAMPLES, FULL_FID_SAMPLES, FULL_SUMMARIES, FULL_KEEP = 192, 128, 64, 4, 2
+FULL_FID_EVERY = 4 * FULL_EVERY
 # Phase 9: the entry point's protocol, and its interval in examples.
 EVAL_SWD, EVAL_FID, EVAL_INTERVAL = 1000, 100, 50_000
 METRIC_TOL = dict(rtol=1e-3, atol=1e-3)  # a metric on the card vs on the CPU
@@ -258,7 +271,9 @@ PRECISIONS = (("float32", {}), ("bf16", {"bf16": True}),
               ("bf16_fast_gen", {"bf16": True, "fast_gen": True}))
 BF16_STEP_TOL = dict(rtol=1e-2, atol=1e-3)
 GROSS_REL, GROSS_ABS = 0.25, 1e-3
-BF16_FIT_STEPS = 24
+BF16_FIT_STEPS = 12
+# Phase 13h's rounds of the two backwards in turns.
+BF16_ROUNDS = 3
 PEAK_BF16_FLOPS = 989e12
 
 
@@ -300,9 +315,12 @@ DP_TIMEOUT = 300.0
 DIAG_SAMPLES, DIAG_SIGMA, DIAG_CHUNK = 1000, SIGMA0, 100
 DIAG_TOL = dict(rel_tol=1e-3, abs_tol=0.01)
 DIAG_INCEPTION_BATCH, DIAG_INCEPTION_TOL = 8, dict(rtol=1e-4, atol=1e-4)
-# Phase 18: the bench's invocations, each a process of its own, one after
-# another, with the blur launches of one eager step each must read; a run's
-# time limit.
+# Phase 18: the bench's invocations, one after another, with the blur
+# launches of one eager step each must read; a run's time limit. The first
+# runs as a user runs it, in a process of its own; the others, and
+# --ablation and --blur_ab, through bench.main in this process, which spares
+# each a process's start-up (~10 s of the script's time limit) and runs the
+# same code on the same card.
 BENCH_RUNS = (("default", [], 6), ("f32", ["--f32", "--no_peak"], 6),
               ("f32_torch", ["--f32", "--blur_impl", "torch", "--no_peak"], 0),
               ("f32_chunked", ["--f32", "--chunked"], 6), ("infer", ["--infer"], 0),
@@ -409,13 +427,14 @@ def check_history(trainer, history, what: str) -> None:
 
 
 def kernel_cases(blur_matrix, device):
-    """(label, planes, t_h, t_w) for phase 3."""
+    """(label, planes, t_h, t_w, sigma) for phase 3: sigma is the band's σ at
+    the policy resolution max(h, w), None for a T that is no band."""
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
     for p, h, w in KERNEL_SHAPES:
         cases.append((f"{p}x{h}x{w} sigma 2", torch.randn(p, h, w, device=device, generator=gen),
                       blur_matrix(2.0, h, max(h, w), device=device),
-                      blur_matrix(2.0, w, max(h, w), device=device)))
+                      blur_matrix(2.0, w, max(h, w), device=device), 2.0))
     p = 2 * BATCH * 3
 
     def planes():
@@ -423,48 +442,60 @@ def kernel_cases(blur_matrix, device):
 
     for sigma in SIGMA_SWEEP:
         t = blur_matrix(sigma, RES, device=device)
-        cases.append((f"{p}x{RES}x{RES} sigma {sigma}", planes(), t, t))
+        cases.append((f"{p}x{RES}x{RES} sigma {sigma}", planes(), t, t, sigma))
     dense = torch.randn(RES, RES, device=device, generator=gen) / RES ** 0.5
-    cases.append((f"{p}x{RES}x{RES} random dense T", planes(), dense, dense))
+    cases.append((f"{p}x{RES}x{RES} random dense T", planes(), dense, dense, None))
     zero_tile = blur_matrix(SIGMA0, RES, device=device)
     zero_tile[32:64, :] = 0   # an empty row tile of T_h
     zero_tile[:, 64:96] = 0   # an empty column tile of T_w
-    cases.append((f"{p}x{RES}x{RES} zero-tile T", planes(), zero_tile, zero_tile))
+    cases.append((f"{p}x{RES}x{RES} zero-tile T", planes(), zero_tile, zero_tile, None))
     # MNIST b32: the critic on cat([fakes, reals]) and the other five calls.
     for sigma in MNIST_SIGMAS:
         t = blur_matrix(sigma, MNIST_RES, device=device)
         for p in (2 * BATCH, BATCH):
             cases.append((f"{p}x{MNIST_RES}x{MNIST_RES} sigma {sigma}",
                           torch.randn(p, MNIST_RES, MNIST_RES, device=device, generator=gen),
-                          t, t))
+                          t, t, sigma))
     return cases
 
 
+def three_orders(fn, x):
+    """Forward, backward and the penalty's double backward of ``fn`` at x."""
+    p = x.shape[0]
+    x = x.detach().requires_grad_(True)
+    y = fn(x)
+    (g,) = torch.autograd.grad(torch.sum(y ** 2), x, create_graph=True)
+    penalty = torch.sum(torch.sqrt(torch.sum(g.reshape(p, -1) ** 2, 1)))
+    (gg,) = torch.autograd.grad(penalty, x)
+    return y.detach(), g.detach(), gg
+
+
 def check_kernel(blur_cuda, blur_matrix, device):
-    """Phase 3. Returns the largest absolute error seen."""
-    worst = 0.0
-    for label, x, t_h, t_w in kernel_cases(blur_matrix, device):
-        p = x.shape[0]
-        x.requires_grad_(True)
-        pairs = []
-        outs = {}
-        for name, fn in (("cuda", blur_cuda.blur_planes),
-                         ("plain", blur_cuda.blur_planes_reference)):
-            y = fn(x, t_h, t_w)
-            (g,) = torch.autograd.grad(torch.sum(y ** 2), x, create_graph=True)
-            penalty = torch.sum(torch.sqrt(torch.sum(g.reshape(p, -1) ** 2, 1)))
-            (gg,) = torch.autograd.grad(penalty, x)
-            outs[name] = (y.detach(), g.detach(), gg)
-        torch.cuda.synchronize()
-        errs = []
-        for order, tol, a, b in zip(("forward", "backward", "double backward"),
-                                    (FWD_TOL, GRAD_TOL, GRAD_TOL), outs["cuda"], outs["plain"]):
-            torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{order} {label}: {m}")
-            errs.append(float((a - b).abs().max()))
-            pairs.append(f"{order} {errs[-1]:.3e}")
-        worst = max(worst, *errs)
-        log(f"[kernel] {label}: max |cuda - plain|: " + ", ".join(pairs))
-    return worst
+    """Phase 3: each case's T mode against its plain version, and σ mode
+    against its own where T is a band. Returns the largest absolute errors,
+    (σ mode, T mode)."""
+    worst = {"sigma": 0.0, "t": 0.0}
+    for label, x, t_h, t_w, sigma in kernel_cases(blur_matrix, device):
+        res = max(x.shape[1:])
+        arms = {"t": (lambda v: blur_cuda.blur_planes(v, t_h, t_w),
+                      lambda v: blur_cuda.blur_planes_reference(v, t_h, t_w))}
+        if sigma is not None:
+            s = torch.tensor(sigma, device=device)
+            arms["sigma"] = (lambda v: blur_cuda.blur_sigma(v, s, res),
+                             lambda v: blur_cuda.blur_sigma_reference(v, s, res))
+        for mode, (kernel, plain) in arms.items():
+            outs = three_orders(kernel, x), three_orders(plain, x)
+            torch.cuda.synchronize()
+            pairs = []
+            for order, tol, a, b in zip(("forward", "backward", "double backward"),
+                                        (FWD_TOL, GRAD_TOL, GRAD_TOL), *outs):
+                torch.testing.assert_close(a, b, **tol,
+                                           msg=lambda m: f"{order} {label} {mode} mode: {m}")
+                err = float((a - b).abs().max())
+                worst[mode] = max(worst[mode], err)
+                pairs.append(f"{order} {err:.3e}")
+            log(f"[kernel] {label}, {mode} mode: max |cuda - plain|: " + ", ".join(pairs))
+    return worst["sigma"], worst["t"]
 
 
 def run_slice(blur_cuda, workdir):
@@ -475,11 +506,16 @@ def run_slice(blur_cuda, workdir):
     args = smoke_args(os.path.join(workdir, "slice"), sample_grid_every=0, checkpoint_every=0,
                       save_image_summaries_interval=0)
     trainer, total = build_trainer(args, feeders=[])
+    from blurred_gan_tpu_torch.ops import blur
+
     per_step = count_step_launches(blur_cuda, trainer)
-    blur_cuda.launch_count = 0
+    blur_cuda.launch_count = blur_cuda.sigma_launch_count = blur.matrix_count = 0
     trainer.fit(total_examples=total, max_steps=STEPS)
     torch.cuda.synchronize()
     launches = blur_cuda.launch_count
+    if blur_cuda.sigma_launch_count != launches or blur.matrix_count != 0:
+        raise RuntimeError(f"phase 4: {launches} launches, {blur_cuda.sigma_launch_count} of "
+                           f"them sigma mode; {blur.matrix_count} band matrices built")
     history = list(trainer.history)
     check_history(trainer, history, "phase 4")
     if len(set(per_step)) != 1 or per_step[0] < 3:
@@ -565,73 +601,51 @@ def adam_ab(trainer, reals, total, card):
 
 
 def blur_bound(planes, t_h, t_w):
-    """(bound in ms, "bytes" or "operations") of one blur call on these inputs:
-    each input read once and the output written once, over the memory rate;
-    the products with a non-zero entry of T, over the float32 rate."""
+    """(bound in ms, "bytes" or "operations") of one σ-mode blur call on
+    these inputs: the planes and σ read once and the output written once,
+    over the memory rate; the products with a non-zero entry of T, over the
+    float32 rate."""
     h, w = t_h.shape[0], t_w.shape[0]
-    nbytes = 4 * (2 * planes * h * w + h * h + w * w)
+    nbytes = 4 * (2 * planes * h * w + 1)
     flops = 2 * planes * (w * int(torch.count_nonzero(t_h)) + h * int(torch.count_nonzero(t_w)))
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_blur(blur_cuda, blur_matrix, device, planes, sigma, card, n=200):
-    """Phase 5c: ms per blur call, kernel and plain (two cuBLAS float32
-    matmuls), by CUDA events, in turns; and the call's bound."""
-    x = torch.randn(planes, RES, RES, device=device)
-    t = blur_matrix(sigma, RES, device=device)
-
-    def per_call(fn):
-        for _ in range(10):
-            fn(x, t, t)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn(x, t, t)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    runs = {"cuda": [], "plain": []}
-    for name in ("plain", "cuda", "cuda", "plain"):
-        fn = blur_cuda.blur_planes_forward if name == "cuda" else blur_cuda.blur_planes_reference
-        runs[name].append(per_call(fn))
-    ms = {k: min(v) for k, v in runs.items()}
-    bound_ms, bound_by = blur_bound(planes, t, t)
-    log(f"[blur] {planes}x{RES}x{RES} sigma {sigma}: kernel {ms['cuda'] * 1e3:.1f} us/call "
-        f"(runs {', '.join(f'{v * 1e3:.1f}' for v in runs['cuda'])}), plain "
-        f"{ms['plain'] * 1e3:.1f} us/call (runs {', '.join(f'{v * 1e3:.1f}' for v in runs['plain'])}), "
-        f"bound {bound_ms * 1e3:.1f} us by {bound_by}: kernel at "
-        f"{100 * bound_ms / ms['cuda']:.0f}% of its bound, "
-        f"{ms['plain'] / ms['cuda']:.2f}x the plain version's speed on {card}")
-    return {"planes": planes, "sigma": sigma, "ms": ms["cuda"], "plain_ms": ms["plain"],
-            "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def time_blur_graphed(blur_cuda, blur_matrix, device, planes, res, sigma, card, calls=50,
-                      replays=4):
-    """Phase 11: ms per blur call at a small plane, kernel and plain, each
-    timed as ``calls`` calls captured in a CUDA graph and replayed, so that
-    the host's launch time (tens of µs a call from Python, more than the
-    device's work at 28²) is not counted; in turns; and the call's bound."""
+def time_blur(blur_cuda, blur_matrix, device, planes, sigma, card, res=RES, calls=50,
+              replays=4):
+    """ms per blur call on ``planes`` planes of res² at σ, each arm as
+    ``calls`` calls captured in a CUDA graph and replayed, so that the host's
+    launch time (tens of µs a call from Python, more than the device's work at
+    the small planes) is not counted; the arms in turns: the kernel's σ mode
+    (the main path), its T mode on the band matrices, σ mode's plain version
+    (the band matrices built from σ, then two matmuls) and the library call,
+    the two cuBLAS float32 matmuls alone on prebuilt matrices; σ mode and T
+    mode held to the plain version first; with σ mode's bound."""
     x = torch.randn(planes, res, res, device=device)
+    s = torch.tensor(float(sigma), device=device)
     t = blur_matrix(sigma, res, device=device)
-    fns = {"cuda": blur_cuda.blur_planes_forward, "plain": blur_cuda.blur_planes_reference}
-    torch.testing.assert_close(
-        fns["cuda"](x, t, t), fns["plain"](x, t, t), **FWD_TOL,
-        msg=lambda m: f"{planes}x{res}x{res} sigma {sigma}, kernel vs plain: {m}")
+    fns = {"sigma": lambda: blur_cuda.blur_sigma_forward(x, s, res),
+           "t": lambda: blur_cuda.blur_planes_forward(x, t, t),
+           "plain": lambda: blur_cuda.blur_sigma_reference(x, s, res),
+           "cublas": lambda: blur_cuda.blur_planes_reference(x, t, t)}
+    want = fns["plain"]()
+    for name in ("sigma", "t"):
+        torch.testing.assert_close(
+            fns[name](), want, **FWD_TOL,
+            msg=lambda m: f"{planes}x{res}x{res} sigma {sigma}, {name} mode vs plain: {m}")
     graphs = {}
     for name, fn in fns.items():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(3):
-                fn(x, t, t)
+                fn()
         torch.cuda.current_stream().wait_stream(side)
         graphs[name] = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graphs[name]):
             for _ in range(calls):
-                fn(x, t, t)
+                fn()
 
     def per_call(name):
         graphs[name].replay()
@@ -643,19 +657,23 @@ def time_blur_graphed(blur_cuda, blur_matrix, device, planes, res, sigma, card, 
         torch.cuda.synchronize()
         return start.elapsed_time(end) / (calls * replays)
 
-    runs = {"cuda": [], "plain": []}
-    for name in ("plain", "cuda", "cuda", "plain"):
+    runs = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
         runs[name].append(per_call(name))
     ms = {k: min(v) for k, v in runs.items()}
     bound_ms, bound_by = blur_bound(planes, t, t)
-    log(f"[blur] {planes}x{res}x{res} sigma {sigma}, {calls} calls in a CUDA graph: kernel "
-        f"{ms['cuda'] * 1e3:.2f} us/call (runs {', '.join(f'{v * 1e3:.2f}' for v in runs['cuda'])}), "
-        f"plain {ms['plain'] * 1e3:.2f} us/call (runs "
-        f"{', '.join(f'{v * 1e3:.2f}' for v in runs['plain'])}), bound {bound_ms * 1e3:.3f} us by "
-        f"{bound_by}: kernel at {100 * bound_ms / ms['cuda']:.1f}% of its bound, "
-        f"{ms['plain'] / ms['cuda']:.2f}x the plain version's speed on {card}")
-    return {"planes": planes, "res": res, "sigma": sigma, "ms": ms["cuda"],
-            "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def us(name):
+        return f"{ms[name] * 1e3:.2f} (runs {', '.join(f'{v * 1e3:.2f}' for v in runs[name])})"
+
+    log(f"[blur] {planes}x{res}x{res} sigma {sigma}, {calls} calls in a CUDA graph, us/call: "
+        f"sigma mode {us('sigma')}, T mode {us('t')}, plain {us('plain')}, cuBLAS "
+        f"{us('cublas')}; bound {bound_ms * 1e3:.3f} us by {bound_by}: sigma mode at "
+        f"{100 * bound_ms / ms['sigma']:.1f}% of its bound, {ms['cublas'] / ms['sigma']:.2f}x "
+        f"cuBLAS's speed, {ms['t'] / ms['sigma']:.2f}x T mode's on {card}")
+    return {"planes": planes, "res": res, "sigma": sigma, "ms": ms["sigma"],
+            "t_ms": ms["t"], "plain_ms": ms["plain"], "library_ms": ms["cublas"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def profile_steps(trainer, reals, card, n=3):
@@ -705,7 +723,7 @@ def run_full(blur_cuda, workdir, slice_per_step, slice_rate, card):
                       checkpoint_every=FULL_EVERY, save_image_summaries_interval=FULL_SUMMARIES)
     feeders = [MetricFeeder(SWDMetric(), every_n_examples=FULL_EVERY,
                             num_samples=FULL_SWD_SAMPLES, name="swd"),
-               MetricFeeder(FIDMetric(), every_n_examples=FULL_EVERY,
+               MetricFeeder(FIDMetric(), every_n_examples=FULL_FID_EVERY,
                             num_samples=FULL_FID_SAMPLES, name="fid")]
     trainer, total = build_trainer(args, feeders=feeders)
     trainer.ckpt = CheckpointManager(trainer.ckpt.directory, max_to_keep=FULL_KEEP,
@@ -773,8 +791,9 @@ def run_full(blur_cuda, workdir, slice_per_step, slice_rate, card):
     non_jax_check()
 
     rates = [h["images_per_sec"] for h in history[2:]]
-    log(f"[full] {STEPS} steps of Trainer.fit with SWD ({FULL_SWD_SAMPLES} samples) and FID "
-        f"({FULL_FID_SAMPLES}) every {FULL_EVERY} examples, a grid and a checkpoint every "
+    log(f"[full] {STEPS} steps of Trainer.fit with SWD ({FULL_SWD_SAMPLES} samples) every "
+        f"{FULL_EVERY} examples and FID ({FULL_FID_SAMPLES}) every {FULL_FID_EVERY}, a grid "
+        f"and a checkpoint every "
         f"{FULL_EVERY}, summaries every {FULL_SUMMARIES} batches: median "
         f"{statistics.median(rates):.1f} img/s (phase 4 without hooks: {slice_rate:.1f}; "
         f"steps 1-{STEPS}: {', '.join(f'{h["images_per_sec"]:.0f}' for h in history)}); "
@@ -938,7 +957,8 @@ def run_eval(trainer, step_rate, card):
             f"({', '.join(f'{k} {v:.3f}' for k, v in out.items())}) on {card}")
 
     timed(f"SWD over {EVAL_SWD} pairs at {RES}x{RES}", SWDMetric(), EVAL_SWD)
-    timed(f"FID (random-conv features) over {EVAL_FID} pairs", FIDMetric(), EVAL_FID)
+    # The random-conv FID is timed once, inside Trainer.evaluate below: its
+    # result is the host's sqrtm of 2048², ~13-27 s whatever the pairs.
     timed(f"FID (InceptionV3 at 299x299, RANDOM weights) over {EVAL_FID} pairs",
           FIDMetric(feature_fn=inception_feature_fn(device=device)), EVAL_FID)
     torch.cuda.synchronize()
@@ -955,10 +975,15 @@ def run_eval(trainer, step_rate, card):
     non_jax_check()
 
 
+def is_blur_kernel(name: str) -> bool:
+    """Whether a profiler row is the blur kernel, σ mode or T mode."""
+    return "blur_sigma_kernel" in name or "blur_planes_kernel" in name
+
+
 def blur_kernel_rows(prof):
     """(launches, device µs) of the blur kernel in a profile."""
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "blur_planes" in e.key]
+            if e.device_type == torch.autograd.DeviceType.CUDA and is_blur_kernel(e.key)]
     return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
 
 
@@ -1139,35 +1164,36 @@ def run_chunked(blur_cuda, workdir, slice_history, slice_rate, step_rate, card):
     return chunked_rate
 
 
-def run_mnist(blur_cuda, blur_matrix, device, workdir, card):
-    """Phase 11: MNIST through its entry point, chunked against fit, the stop
-    freeze on the card, and the kernel at 28²."""
-    import numpy as np
+def mnist_npz(workdir) -> str:
+    """Phase 11's corpus as the MNIST entry point reads it."""
+    return os.path.join(workdir, "mnist.npz")
 
-    from blurred_gan_tpu_torch.data.pipeline import load_mnist
-    from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController
-    from blurred_gan_tpu_torch.train_mnist import build_trainer, parse_args
 
-    dataset = load_mnist()  # the synthetic corpus without a local mnist.npz
-    npz = os.path.join(workdir, "mnist.npz")
-    np.savez(npz, x_train=dataset.images[..., 0])
+def mnist_argv(workdir, name, *extra) -> list:
+    """The MNIST entry point's flags for a run ``name`` on phase 11's corpus."""
+    return ["--mnist_path", mnist_npz(workdir), "--batch_size", str(BATCH), "--seed", "0",
+            "--log_dir", os.path.join(workdir, name), *extra]
 
-    def argv(name, *extra):
-        return ["--mnist_path", npz, "--batch_size", str(BATCH), "--seed", "0", "--log_dir",
-                os.path.join(workdir, name), *extra]
 
-    max_steps = 3 * MNIST_CHUNK // 2
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "blurred_gan_tpu_torch.train_mnist", "--device_resident",
-         "--chunk_steps", str(MNIST_CHUNK // 2), "--max_steps", str(max_steps),
-         *argv("mnist_entry")],
-        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
-        timeout=600)
-    entry_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"train_mnist --device_resident failed ({proc.returncode}):\n"
-                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+MNIST_ENTRY_STEPS = 3 * MNIST_CHUNK // 2  # 3 chunks
+
+
+def mnist_entry_job(workdir):
+    """Phase 11's ``python -m blurred_gan_tpu_torch.train_mnist
+    --device_resident`` as a :func:`run_processes` job. It runs in phase 14's
+    batch of processes, whose start-up and FIDs' host time it shares."""
+    return (["-m", "blurred_gan_tpu_torch.train_mnist", "--device_resident",
+             "--chunk_steps", str(MNIST_CHUNK // 2), "--max_steps", str(MNIST_ENTRY_STEPS),
+             *mnist_argv(workdir, "mnist_entry")], HERE, None)
+
+
+def check_mnist_entry(workdir, result, card) -> None:
+    """The MNIST entry point's run (:func:`mnist_entry_job`): exit 0, finite
+    losses, its SWD and FID at the first chunk boundary, the last
+    checkpoint."""
+    rc, output, entry_s = result
+    if rc != 0:
+        raise RuntimeError(f"train_mnist --device_resident failed ({rc}):\n{output[-6000:]}")
     with open(os.path.join(workdir, "mnist_entry", "events.jsonl")) as f:
         events = [json.loads(line) for line in f]
     swd = [r for r in events if "swd/SWDx1e3_avg" in r]
@@ -1176,15 +1202,32 @@ def run_mnist(blur_cuda, blur_matrix, device, workdir, card):
     if not (swd and fid and losses) or not all(
             math.isfinite(v) for v in losses + [swd[0]["swd/SWDx1e3_avg"], fid[0]["fid"]]):
         raise RuntimeError(f"train_mnist: {len(swd)} SWD, {len(fid)} FID, {len(losses)} loss "
-                           f"records: {proc.stdout[-2000:]}")
+                           f"records: {output[-2000:]}")
     ckpts = sorted(os.listdir(os.path.join(workdir, "mnist_entry", "checkpoints")))
-    if f"{max_steps * BATCH}.pt" not in ckpts:
-        raise RuntimeError(f"train_mnist: checkpoints {ckpts}, want {max_steps * BATCH}.pt")
-    log(f"[mnist] python -m blurred_gan_tpu_torch.train_mnist --device_resident: "
-        f"{max_steps} steps in 3 chunks, {len(losses)} loss records (last d_loss "
-        f"{losses[-1]:+.4f}), SWD avg {swd[0]['swd/SWDx1e3_avg']:.3f} and FID "
-        f"{fid[0]['fid']:.3f} at {swd[0]['step']} examples, checkpoint {max_steps * BATCH}.pt; "
+    want = f"{MNIST_ENTRY_STEPS * BATCH}.pt"
+    if want not in ckpts:
+        raise RuntimeError(f"train_mnist: checkpoints {ckpts}, want {want}")
+    log(f"[mnist] python -m blurred_gan_tpu_torch.train_mnist --device_resident (in phase "
+        f"14's batch of processes): {MNIST_ENTRY_STEPS} steps in 3 chunks, {len(losses)} loss "
+        f"records (last d_loss {losses[-1]:+.4f}), SWD avg {swd[0]['swd/SWDx1e3_avg']:.3f} and "
+        f"FID {fid[0]['fid']:.3f} at {swd[0]['step']} examples, checkpoint {want}; "
         f"{entry_s:.1f} s with start-up, feeders and build on {card}")
+
+
+def run_mnist(blur_cuda, blur_matrix, device, workdir, card):
+    """Phase 11: MNIST chunked against fit, the stop freeze on the card, and
+    the kernel at 28² (its entry point's process runs in phase 14's batch)."""
+    import numpy as np
+
+    from blurred_gan_tpu_torch.data.pipeline import load_mnist
+    from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController
+    from blurred_gan_tpu_torch.train_mnist import build_trainer, parse_args
+
+    dataset = load_mnist()  # the synthetic corpus without a local mnist.npz
+    np.savez(mnist_npz(workdir), x_train=dataset.images[..., 0])
+
+    def argv(name, *extra):
+        return mnist_argv(workdir, name, *extra)
 
     # Chunked against fit from the same weights, data and draws, step by
     # step: deterministic cuDNN and the same Adam arithmetic (phase 10).
@@ -1261,7 +1304,7 @@ def run_mnist(blur_cuda, blur_matrix, device, workdir, card):
     log(f"[mnist] stop freeze in the graph: the controller stopped at step {n} of a chunk of "
         f"{CHUNK}; the state after the chunk equals {n} steps of fit (max |diff| {worst:.2e})")
 
-    timings = [time_blur_graphed(blur_cuda, blur_matrix, device, planes, MNIST_RES, sigma, card)
+    timings = [time_blur(blur_cuda, blur_matrix, device, planes, sigma, card, res=MNIST_RES)
                for sigma in MNIST_SIGMAS for planes in (2 * BATCH, BATCH)]
     non_jax_check()
     return timings
@@ -1652,7 +1695,7 @@ def bf16_backward_rates(card):
     and ``--bf16 --fast_gen``, the generator's float32 backward (landed) and
     the rounding backward (before, captured inside
     :func:`rounding_backward`), one window of each in turns over
-    ``bench.WINDOWS`` rounds after the warm-up that captures. Returns the
+    ``BF16_ROUNDS`` rounds after the warm-up that captures. Returns the
     medians by configuration."""
     from blurred_gan_tpu_torch import bench
 
@@ -1669,7 +1712,7 @@ def bf16_backward_rates(card):
             windows[" ".join(["--bf16", *flags]), landed] = window
     order = list(windows)
     rates = {key: [] for key in order}
-    for rep in range(bench.WINDOWS):
+    for rep in range(BF16_ROUNDS):
         for key in (order if rep % 2 == 0 else order[::-1]):
             rates[key].append(windows[key](rep)[0])
     out = {}
@@ -1817,8 +1860,8 @@ def profile_precision(trainer, name, step_flops, card):
     if not rows:
         raise RuntimeError(f"phase 13 {name}: the profiler saw no device time in a chunk")
     busy = sum(r[0] for r in rows)
-    blur = sum(r[0] for r in rows if "blur_planes" in r[1])
-    blur_n = sum(r[2] for r in rows if "blur_planes" in r[1])
+    blur = sum(r[0] for r in rows if is_blur_kernel(r[1]))
+    blur_n = sum(r[2] for r in rows if is_blur_kernel(r[1]))
     # PyTorch's copies (``.to``, ``.contiguous``): float32 has the layout
     # copies too; ``bfloat16_copy_kernel`` is the float32 -> bfloat16 cast.
     copies = sum(r[0] for r in rows if "copy_kernel" in r[1])
@@ -2130,7 +2173,10 @@ def run_serving(blur_cuda, blur_matrix, full_args, dataset, workdir, card):
                           run_dir, "--data_path", data_dir], HERE, None),
         "score": (["-m", "blurred_gan_tpu_torch.tools.score", "--real", reals_npz,
                    "--fake", fakes_npz, "--kid", "--prdc"], HERE, None),
+        # Phase 11's entry point, a training run beside these.
+        "mnist_entry": mnist_entry_job(workdir),
     }, workdir)
+    check_mnist_entry(workdir, results.pop("mnist_entry"), card)
     for name, (rc, output, _) in results.items():
         if (rc != 0) != (name == "sample_ema"):
             raise RuntimeError(f"phase 14, {name}: exit code {rc}\n{output[-3000:]}")
@@ -2218,7 +2264,8 @@ def run_serving(blur_cuda, blur_matrix, full_args, dataset, workdir, card):
             f"{r['artifact_peak_bytes'] / 2**20:.0f} MiB over what was held on {card}")
     return {"launches": launches, "max_abs_err": grid_err, "ms": timing["ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": timing["plain_ms"],
+            "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+            "t_ms": timing["t_ms"],
             "planes": timing["planes"], "sigma": SERVE_SIGMA,
             "flops_per_image": flops, "inference": speed,
             "artifact_max_abs_err": serve_err, "moved_to_cpu_max_abs_err": moved_err,
@@ -2631,13 +2678,13 @@ def dp_worker(cfg: dict) -> None:
     if cfg.get("concat"):
         trainer.dataset = ConcatShards(trainer.dataset, cfg["concat"])
     per_step = count_step_launches(blur_cuda, trainer)
-    planes, launch = [], blur_cuda._launch
+    planes, launch = [], blur_cuda._launch_sigma
 
-    def recording_launch(x, t_h, t_w):
+    def recording_launch(x, sigma, resolution):
         planes.append(int(x.shape[0]))
-        return launch(x, t_h, t_w)
+        return launch(x, sigma, resolution)
 
-    blur_cuda._launch = recording_launch
+    blur_cuda._launch_sigma = recording_launch
     # The gradients' all-reduce of each step, timed between synchronisations.
     reduce_s, all_reduce_grads = [], parallel.all_reduce_grads
 
@@ -2654,7 +2701,7 @@ def dp_worker(cfg: dict) -> None:
     trainer.fit(total_examples=total, max_steps=STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    blur_cuda._launch, parallel.all_reduce_grads = launch, all_reduce_grads
+    blur_cuda._launch_sigma, parallel.all_reduce_grads = launch, all_reduce_grads
     history = list(trainer.history)
     rank = process_index()
     out = {"rank": rank, "world": trainer.world, "device": str(trainer.device),
@@ -2974,7 +3021,8 @@ def run_diagnostics(blur_cuda, blur_matrix, full_args, workdir, card):
     non_jax_check()
     return {"launches": runs["kernel"]["launches"], "ms": timing["ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": timing["plain_ms"],
+            "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+            "t_ms": timing["t_ms"],
             "planes": timing["planes"], "sigma": DIAG_SIGMA,
             "diagnose": {name: {k: v for k, v in r.items() if k != "rows"}
                          for name, r in runs.items()},
@@ -2992,18 +3040,20 @@ def run_data_parallel(blur_cuda, blur_matrix, device, workdir, slice_history, ca
         return dict(name=name, batch=batch, out=out_dir, log_dir=os.path.join(out_dir, name),
                     **kw)
 
+    # All at once: each run's checks are of its own outputs, and start-up
+    # is most of each run's seconds.
     jobs = {
         # (a) a group of one over NCCL, and no group, at the smoke batch.
         "nogroup": (worker_job(cfg("nogroup", BATCH, device="cuda:0")), HERE, None),
         "one": (worker_job(cfg("one", BATCH, device="cuda", group=True), 1), HERE, None),
-        # (b) one process on the two ranks' concatenated reals, then the two
+        # (b) one process on the two ranks' concatenated reals, and the two
         # ranks on the one card over gloo.
         "concat": (worker_job(cfg("concat", BATCH, device="cuda:0", concat=DP_WORLD)), HERE,
-                   "one"),
+                   None),
         "gloo": (worker_job(cfg("gloo", BATCH // DP_WORLD, device="cuda:0", backend="gloo",
-                                eval=True, resume=True), DP_WORLD), HERE, "concat"),
+                                eval=True, resume=True), DP_WORLD), HERE, None),
         # NCCL refuses two ranks on one device (a probe that must fail).
-        "nccl_one_card": (torchrun(DP_WORLD, "--nccl_probe"), HERE, "gloo"),
+        "nccl_one_card": (torchrun(DP_WORLD, "--nccl_probe"), HERE, None),
     }
     two_cards = torch.cuda.device_count() >= DP_WORLD
     if two_cards:  # (c) NCCL across two cards
@@ -3041,7 +3091,8 @@ def run_data_parallel(blur_cuda, blur_matrix, device, workdir, slice_history, ca
     ranks, diffs, evaluated, want = check_ranks(
         "(b)", "gloo", read, out_dir, concat, local_planes, device,
         f"2 ranks at b{BATCH // DP_WORLD} on cuda:0 over gloo")
-    log(f"[dp] (b) img/s: 2 processes sharing one card through gloo, not a DP speed: "
+    log(f"[dp] (b) img/s, with phase 16's other runs on the card: 2 processes sharing one "
+        f"card through gloo, not a DP speed: "
         f"{ranks[0]['img_s']:.1f} global img/s ({ranks[0]['fit_s']:.1f} s for {STEPS} steps; "
         f"the gradients' all-reduce {ranks[0]['all_reduce_ms']:.1f} ms a step, median of steps "
         f"3-{STEPS}, between synchronisations); "
@@ -3084,18 +3135,46 @@ def bench_line(output: str) -> dict:
     raise RuntimeError(f"phase 18: no bench line in\n{output[-3000:]}")
 
 
+def bench_in_process(argv):
+    """``bench.main(argv)`` in this process, its printed lines captured:
+    (exit code, output, seconds), as :func:`run_processes` gives a run."""
+    import gc
+    import io
+
+    from blurred_gan_tpu_torch import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the bench's
+    out, rc = io.StringIO(), 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            bench.main(argv)
+        except SystemExit as e:  # the bench's exit 1 on a line not correct
+            rc = e.code if isinstance(e.code, int) else 1
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rc, out.getvalue(), seconds
+
+
 def run_bench(workdir, chunked_rate, card):
-    """Phase 18: ``python -m blurred_gan_tpu_torch.bench`` as a user runs it,
-    once for each of ``BENCH_RUNS``. Returns the lines by run."""
+    """Phase 18: ``python -m blurred_gan_tpu_torch.bench`` once for each of
+    ``BENCH_RUNS``, the first in a process of its own as a user runs it, the
+    others through ``bench.main`` here. Returns the lines by run."""
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()  # this process's cached blocks, for the bench's
     lines = {}
-    for name, argv, per_step in BENCH_RUNS:
-        job = {name: (["-m", "blurred_gan_tpu_torch.bench", *argv], HERE, None)}
-        rc, output, seconds = run_processes(job, workdir, timeout=BENCH_TIMEOUT,
-                                            what="phase 18")[name]
+    for i, (name, argv, per_step) in enumerate(BENCH_RUNS):
+        if i == 0:
+            job = {name: (["-m", "blurred_gan_tpu_torch.bench", *argv], HERE, None)}
+            rc, output, seconds = run_processes(job, workdir, timeout=BENCH_TIMEOUT,
+                                                what="phase 18")[name]
+        else:
+            rc, output, seconds = bench_in_process(argv)
         if rc != 0:
             raise RuntimeError(f"phase 18, bench {' '.join(argv)}: exit code {rc}\n"
                                f"{output[-3000:]}")
@@ -3121,21 +3200,19 @@ def run_bench(workdir, chunked_rate, card):
             raise RuntimeError(f"phase 18: flops_per_step {counts} across {group}")
     log(f"[bench] --f32 --chunked {lines['f32_chunked']['value']:.1f} img/s (median of "
         f"{len(lines['f32_chunked']['windows'])} chunks of {lines['f32_chunked']['chunk_steps']}, "
-        f"its own process) beside phase 10's chunked {chunked_rate:.1f} img/s (median of chunks "
-        f"2-{TIMED_CHUNKS} of {TIMED_CHUNK}) on {card}")
+        f"through bench.main here) beside phase 10's chunked {chunked_rate:.1f} img/s (median "
+        f"of chunks 2-{TIMED_CHUNKS} of {TIMED_CHUNK}) on {card}")
     return lines
 
 
-def run_ablation(workdir, card):
+def run_ablation(card):
     """Phase 18 (b): ``python -m blurred_gan_tpu_torch.bench --ablation
-    --no_peak`` (bfloat16, b32) in a process of its own: four arm lines,
+    --no_peak`` (bfloat16, b32) through ``bench.main`` here: four arm lines,
     each correct (its kernel step against the plain blur's) with
     ``ABLATION_LAUNCHES`` blur launches an eager step on this card, then the
     ``summary_ms`` line, whose marginals are ``full`` minus each arm.
     Returns the lines."""
-    argv = ["-m", "blurred_gan_tpu_torch.bench", "--ablation", "--no_peak"]
-    rc, output, seconds = run_processes({"ablation": (argv, HERE, None)}, workdir,
-                                        timeout=BENCH_TIMEOUT, what="phase 18")["ablation"]
+    rc, output, seconds = bench_in_process(["--ablation", "--no_peak"])
     if rc != 0:
         raise RuntimeError(f"phase 18, bench --ablation: exit code {rc}\n{output[-3000:]}")
     lines = [json.loads(line) for line in output.splitlines()
@@ -3164,18 +3241,17 @@ def run_ablation(workdir, card):
     return {"arms": arms, "summary": summary, "seconds": seconds}
 
 
-def run_blur_ab(workdir, card):
+def run_blur_ab(card):
     """Phase 18 (c): ``python -m blurred_gan_tpu_torch.bench --blur_ab`` at
-    ``BLUR_AB_RESOLUTIONS`` in a process of its own: a line per (impl,
+    ``BLUR_AB_RESOLUTIONS`` through ``bench.main`` here: a line per (impl,
     resolution), each correct and on this card; beside each resolution the
-    kernel and the plain blur alone at the chain's first σ, 2.5, on fixed
-    band matrices (:func:`time_blur_graphed`: replayed from a CUDA graph as
+    kernel's σ mode, its T mode, the plain blur and cuBLAS alone at the
+    chain's first σ, 2.5 (:func:`time_blur`: replayed from a CUDA graph as
     the chain is, with the call's bound). Returns the lines, those timings
     and the seconds."""
-    argv = ["-m", "blurred_gan_tpu_torch.bench", "--blur_ab", "--resolutions",
-            ",".join(map(str, BLUR_AB_RESOLUTIONS)), "--min-seconds", str(BLUR_AB_MIN_SECONDS)]
-    rc, output, seconds = run_processes({"blur_ab": (argv, HERE, None)}, workdir,
-                                        timeout=BENCH_TIMEOUT, what="phase 18")["blur_ab"]
+    rc, output, seconds = bench_in_process(
+        ["--blur_ab", "--resolutions", ",".join(map(str, BLUR_AB_RESOLUTIONS)),
+         "--min-seconds", str(BLUR_AB_MIN_SECONDS)])
     if rc != 0:
         raise RuntimeError(f"phase 18, bench --blur_ab: exit code {rc}\n{output[-3000:]}")
     from blurred_gan_tpu_torch.ops.blur import blur_matrix
@@ -3193,14 +3269,15 @@ def run_blur_ab(workdir, card):
     for res in BLUR_AB_RESOLUTIONS:
         by_impl = {line["impl"]: line for line in lines if line["resolution"] == res}
         planes = 3 * by_impl["cuda"]["batch"]
-        alone[res] = time_blur_graphed(blur_cuda, blur_matrix, torch.device("cuda"), planes,
-                                       res, 2.5, card)
+        alone[res] = time_blur(blur_cuda, blur_matrix, torch.device("cuda"), planes, 2.5, card,
+                               res=res)
         kernel, plain = by_impl["cuda"]["us_per_blur"], by_impl["torch"]["us_per_blur"]
-        log(f"[bench] --blur_ab {planes}x{res}x{res}: kernel {kernel:.2f} us/blur (rounds "
-            f"{by_impl['cuda']['us_per_blur_rounds']}, {by_impl['cuda']['iters']} iters), plain "
-            f"{plain:.2f} (rounds {by_impl['torch']['us_per_blur_rounds']}), each with its band "
-            f"matrices built from sigma; the calls alone at sigma 2.5 "
-            f"{alone[res]['ms'] * 1e3:.2f} / {alone[res]['plain_ms'] * 1e3:.2f} us, bound "
+        log(f"[bench] --blur_ab {planes}x{res}x{res}: kernel (sigma mode) {kernel:.2f} us/blur "
+            f"(rounds {by_impl['cuda']['us_per_blur_rounds']}, {by_impl['cuda']['iters']} "
+            f"iters), plain {plain:.2f} (rounds {by_impl['torch']['us_per_blur_rounds']}), the "
+            f"plain arm building its band matrices from sigma; the calls alone at sigma 2.5: "
+            f"sigma mode {alone[res]['ms'] * 1e3:.2f}, T mode {alone[res]['t_ms'] * 1e3:.2f}, "
+            f"cuBLAS {alone[res]['library_ms'] * 1e3:.2f} us, bound "
             f"{alone[res]['bound_ms'] * 1e3:.2f} us by {alone[res]['bound_by']}; kernel "
             f"{plain / kernel:.2f}x the plain version's speed in the chain on {card}")
     return {"lines": lines, "alone": alone, "seconds": seconds}
@@ -3334,7 +3411,7 @@ def run_quality(blur_cuda, blur_matrix, device, workdir, card):
                      "images_per_sec": meta["images_per_sec"], "seconds": seconds,
                      "first_step_rel_diff": rel, "score": score})
     # 192 planes: the critic on cat([fakes, reals]) at 64², b32; 96: the other calls.
-    timings = [time_blur_graphed(blur_cuda, blur_matrix, device, planes, 64, sigma, card)
+    timings = [time_blur(blur_cuda, blur_matrix, device, planes, sigma, card, res=64)
                for sigma in QUALITY_SIGMAS for planes in (2 * BATCH * 3, BATCH * 3)]
     non_jax_check()
     return {"runs": runs, "cases": timings}
@@ -3362,7 +3439,7 @@ def main():
         log(f"[build] {blur_cuda.SOURCE.name}: {time.perf_counter() - t0:.1f} s")
 
     with phase("3 kernel vs plain"):
-        max_err = check_kernel(blur_cuda, blur_matrix, device)
+        max_err, t_err = check_kernel(blur_cuda, blur_matrix, device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         with phase("4 slice"):
@@ -3385,12 +3462,16 @@ def main():
             adam_ab(trainer, reals, 10 ** 9, card)
 
         with phase("6 occupancy"):
-            blocks, smem = blur_cuda.occupancy(RES)
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            grid = (RES // blur_cuda.ROW_TILE) * 2 * BATCH * 3
-            log(f"[occupancy] blur_planes at {RES}x{RES}: {blocks} blocks per SM, {smem} bytes "
-                f"of dynamic shared memory per block; {grid} blocks at {2 * BATCH * 3} planes "
-                f"fill {grid / (blocks * sms):.2f} waves of {blocks * sms} slots on {sms} SMs")
+            occupancy = {}
+            for res in (MNIST_RES, 64, RES, 256):
+                for mode in ("sigma", "t"):
+                    a = occupancy[f"{mode}_{res}"] = blur_cuda.kernel_attributes(mode, res, res)
+                    log(f"[occupancy] {mode} mode at {res}x{res}: {a['registers']} registers "
+                        f"and {a['local_bytes']} bytes of local memory (spills) a thread, "
+                        f"{a['blocks_per_sm']} blocks per SM, {a['smem_bytes']} bytes of "
+                        f"dynamic shared memory a block ({a['blocks_per_sm'] * sms} slots on "
+                        f"{sms} SMs)")
 
         with phase("7 full run"):
             full, full_args = run_full(blur_cuda, workdir, per_step[0], slice_rate, card)
@@ -3419,8 +3500,8 @@ def main():
             diagnostics = run_diagnostics(blur_cuda, blur_matrix, full_args, workdir, card)
         with phase("18 bench"):
             bench = run_bench(workdir, chunked_rate, card)
-            bench["ablation"] = run_ablation(workdir, card)
-            bench["blur_ab"] = run_blur_ab(workdir, card)
+            bench["ablation"] = run_ablation(card)
+            bench["blur_ab"] = run_blur_ab(card)
         with phase("19 quality"):
             quality = run_quality(blur_cuda, blur_matrix, device, workdir, card)
 
@@ -3429,12 +3510,15 @@ def main():
         "name": "blur_planes", "route": "cuda",
         "source": "blurred_gan_tpu_torch/csrc/blur_planes.cu",
         "replaces": "blurred_gan_tpu/ops/blur_pallas.py:54",
-        "launches": launches, "max_abs_err": max_err,
+        # σ mode, the main path's entry point (T mode launched none in phase 4).
+        "mode": "sigma", "launches": launches, "max_abs_err": max_err,
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
-        # The library call is the plain version itself: two cuBLAS matmuls.
-        "library_ms": headline["plain_ms"], "sigma": headline["sigma"],
-        "planes": headline["planes"], "cases": timings + mnist_timings,
+        # The library call: two cuBLAS float32 matmuls on prebuilt band matrices.
+        "library_ms": headline["library_ms"], "sigma": headline["sigma"],
+        "t_mode": {"ms": headline["t_ms"], "max_abs_err": t_err},
+        "occupancy": occupancy, "planes": headline["planes"],
+        "cases": timings + mnist_timings,
         "variants": variants, "bf16": bf16, "serving": serving, "folder": folder,
         "parallel": parallel, "diagnostics": diagnostics, "bench": bench,
         "quality": quality}]}),
@@ -3489,8 +3573,8 @@ def bf16_ablation_only():
             landing = {"backward_grad_apart": bf16_backward_step(workdir, reals),
                        "bench": bf16_backward_rates(card)}
         with phase("18 bench --ablation, --blur_ab"):
-            ablation = run_ablation(workdir, card)
-            blur_ab = run_blur_ab(workdir, card)
+            ablation = run_ablation(card)
+            blur_ab = run_blur_ab(card)
     print(json.dumps({"landing": landing, "ablation": ablation, "blur_ab": blur_ab}),
           flush=True)
 

@@ -1,5 +1,5 @@
-"""The port on a CUDA card: the blur kernel and the train step against their
-plain PyTorch versions.
+"""The port on a CUDA card: the blur kernel (σ mode, the main path, and T
+mode) and the train step against their plain PyTorch versions.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 no jax, so that on a machine with a card and no jax it runs without the
@@ -140,6 +140,148 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         blur_cuda.blur_planes_forward(torch.zeros(1, 1, wide, device=cuda_device),
                                       torch.eye(1, device=cuda_device),
                                       torch.eye(wide, device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# σ mode: the kernel builds the band's taps from σ on the card
+# ---------------------------------------------------------------------------
+
+SIGMAS = (0.05, 0.3, 2.5, 5.0, 23.5, 100.0)
+
+
+@pytest.mark.parametrize("planes", [1, 96, 192])
+@pytest.mark.parametrize("h,w", [(28, 28), (64, 64), (128, 128), (256, 256), (16, 32),
+                                 (36, 30)])
+def test_sigma_mode_matches_plain(cuda_device, planes, h, w):
+    # The main path's sizes and two non-square planes (36x30 off the float4
+    # path), across σ; then the three orders at σ 2.5: one launch a call.
+    from blurred_gan_tpu_torch.ops import blur
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(planes, h, w, device=cuda_device, generator=gen)
+    s = torch.zeros((), device=cuda_device)
+    for sigma in SIGMAS:
+        s.fill_(sigma)
+        torch.testing.assert_close(blur_cuda.blur_sigma_forward(x, s, max(h, w)),
+                                   blur_cuda.blur_sigma_reference(x, s, max(h, w)), **FWD,
+                                   msg=lambda m: f"sigma {sigma}: {m}")
+    s.fill_(2.5)
+    x.requires_grad_(True)
+    before = blur_cuda.launch_count, blur_cuda.sigma_launch_count, blur.matrix_count
+    got = three_orders(lambda v: blur_cuda.blur_sigma(v, s, max(h, w)), x)
+    torch.cuda.synchronize()
+    assert (blur_cuda.launch_count - before[0], blur_cuda.sigma_launch_count - before[1],
+            blur.matrix_count - before[2]) == (4, 4, 0)
+    want = three_orders(lambda v: blur_cuda.blur_sigma_reference(v, s, max(h, w)), x)
+    for a, b, tol in zip(got, want, (FWD, GRAD, GRAD)):
+        torch.testing.assert_close(a, b, **tol)
+
+
+def three_orders(fn, x):
+    """Forward, backward and the penalty's double backward of ``fn`` at x."""
+    y = fn(x)
+    (g,) = torch.autograd.grad(torch.sum(y ** 2), x, create_graph=True)
+    (gg,) = torch.autograd.grad(torch.sum(torch.sqrt(torch.sum(g.reshape(x.shape[0], -1) ** 2,
+                                                               1))), x)
+    return y.detach(), g.detach(), gg
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 6), (5, 1), (2, 2), (3, 3)])
+def test_sigma_mode_tiny_planes(cuda_device, h, w):
+    # Planes below the 3-tap floor (at 1x1 the policy gives one tap, half 0,
+    # the identity), and a NaN σ, whose taps are NaN as the plain version's are.
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(5, h, w, device=cuda_device, generator=gen)
+    s = torch.zeros((), device=cuda_device)
+    for sigma in SIGMAS + (float("nan"),):
+        s.fill_(sigma)
+        torch.testing.assert_close(blur_cuda.blur_sigma_forward(x, s, max(h, w)),
+                                   blur_cuda.blur_sigma_reference(x, s, max(h, w)), **FWD,
+                                   equal_nan=True, msg=lambda m: f"sigma {sigma}: {m}")
+
+
+def test_sigma_mode_unaligned_planes(cuda_device):
+    # A contiguous view at an offset of one float: the copies without the
+    # copy engine.
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(1 + 4 * 32 * 32, device=cuda_device, generator=gen)[1:].view(4, 32, 32)
+    s = torch.tensor(2.0, device=cuda_device)
+    torch.testing.assert_close(blur_cuda.blur_sigma_forward(x, s, 32),
+                               blur_cuda.blur_sigma_reference(x, s, 32), **FWD)
+
+
+def test_sigma_mode_graph_replays_a_new_sigma(cuda_device):
+    # σ is read on the card: a graph captured once replays with each σ
+    # written into its tensor, equal to an eager call bit for bit (the sums
+    # run in a fixed order) and to the plain version.
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    for planes, res in ((96, 64), (192, 128)):
+        x = torch.randn(planes, res, res, device=cuda_device, generator=gen)
+        s = torch.tensor(5.0, device=cuda_device)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            blur_cuda.blur_sigma_forward(x, s, res)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = blur_cuda.blur_sigma_forward(x, s, res)
+        for sigma in (5.0, 0.05, 2.5, 23.5, 100.0, 5.0):
+            s.fill_(sigma)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, blur_cuda.blur_sigma_forward(x, s, res)), sigma
+            torch.testing.assert_close(out, blur_cuda.blur_sigma_reference(x, s, res), **FWD)
+
+
+def test_step_launches_sigma_mode_and_builds_no_band_matrix(cuda_device):
+    from blurred_gan_tpu_torch.ops import blur
+
+    gan = narrow_gan()
+    hp = BlurredWGANGPHyperParameters(batch_size=4, global_batch_size=4)
+    state = create_train_state(gan, hp, device=cuda_device, seed=0)
+    step = make_train_step(gan, hp, seed=0)
+    reals = torch.randint(0, 256, (4, 16, 16, 3), dtype=torch.uint8, device=cuda_device)
+    for sigma in (1.5, torch.tensor(1.5, device=cuda_device)):
+        before = blur_cuda.launch_count, blur_cuda.sigma_launch_count, blur.matrix_count
+        step(state, reals, sigma)
+        torch.cuda.synchronize()
+        assert (blur_cuda.launch_count - before[0], blur_cuda.sigma_launch_count - before[1],
+                blur.matrix_count - before[2]) == (6, 6, 0)
+
+
+def test_sigma_that_requires_grad_takes_t_mode(cuda_device):
+    # σ's gradient flows through the band matrices, as on the CPU.
+    from blurred_gan_tpu_torch.ops import blur
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(2, 3, 32, 32, device=cuda_device, generator=gen)
+    weights = torch.randn(x.shape, device=cuda_device, generator=gen)
+    grads = {}
+    for device in (cuda_device, torch.device("cpu")):
+        s = torch.tensor(2.5, device=device, requires_grad=True)
+        before = blur_cuda.sigma_launch_count, blur.matrix_count
+        y = blur.blur_images(x.to(device), s)
+        (grads[device.type],) = torch.autograd.grad(torch.sum(y * weights.to(device)), s)
+        if device.type == "cuda":
+            assert blur_cuda.sigma_launch_count == before[0]
+            assert blur.matrix_count - before[1] == 2
+    torch.testing.assert_close(grads["cuda"].cpu(), grads["cpu"], rtol=1e-4, atol=1e-6)
+
+
+def test_sigma_mode_raises_instead_of_falling_back(cuda_device):
+    x = torch.randn(2, 8, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        blur_cuda.blur_sigma_forward(x, torch.tensor(1.0, device=cuda_device,
+                                                     dtype=torch.float64), 8)
+    with pytest.raises(ValueError):
+        blur_cuda.blur_sigma_forward(x, torch.tensor(1.0), 8)  # σ on the CPU
+    with pytest.raises(ValueError):
+        blur_cuda.blur_sigma_forward(x, torch.ones(2, device=cuda_device), 8)
+    with pytest.raises(ValueError):
+        blur_cuda.blur_sigma_forward(x.transpose(1, 2), torch.tensor(1.0, device=cuda_device), 8)
+    with pytest.raises(ValueError):
+        blur_cuda.blur_sigma_forward(x, torch.tensor(1.0, device=cuda_device), 4)
 
 
 def narrow_gan(blur_impl="auto", compute_dtype=torch.float32, fast_gen=False):
