@@ -2,7 +2,7 @@
 and the whole-run σ schedule and batch order of the quality check's runs.
 
     PYTHONPATH=.:tests JAX_PLATFORMS=cpu python tests/torch_fullwidth_parity.py \\
-        [--arms 1,2,3,4,5] [--schedule] [--out parity.jsonl]
+        [--arms 1,2,3,4,5,6,7,8] [--schedule] [--rounding] [--out parity.jsonl]
 
 **Steps.** The ``quality.CONFIGS`` surfaces at their real widths and batch
 (32). The JAX state comes from ``create_train_state`` (``PRNGKey(3)``) and
@@ -21,7 +21,23 @@ share masks). Arms:
    excess precision (``exact``) and by default (``default``, excess precision
    on, the program the JAX package trains with); also ``default`` against
    ``exact``. The port's bfloat16 generator keeps its products' float32 sums
-   where the default compile does (``models/dcgan.py``'s ``f32_sums``).
+   where the default compile does (``models/dcgan.py``'s ``f32_sums``);
+6. ``celeba64 --gen_upsample resize``, 2 steps;
+7. ``celeba64 --ttur_g_lr 0.002``, 2 steps; step 0's line also holds each
+   network's Adam rate, read back from its first update on both sides (and
+   set on the port's optimizers);
+8. ``celeba64 --adaptive``, 4 steps: each side's closed-loop controller
+   (:data:`ADAPTIVE`, ``quality train``'s with no warm-up and no pause between
+   changes, so that σ can move after every step) reads that side's own step
+   scores and sets the next step's σ; each line also holds both controllers'
+   state after the step.
+
+``--rounding`` measures how far float32 rounding alone moves the celeba64
+generator on each side, per upsampler (:func:`generator_rounding`).
+
+:func:`run_arm` with ``narrow=True`` builds the celeba64 layout at a few
+channels a layer (:data:`NARROW_G`, :data:`NARROW_D`): the same stages,
+kernels and strides (``tests/test_torch_arm_parity.py``).
 
 ``--hlo`` lists the bfloat16 roundings the default compile of arm 5's JAX
 step drops: an f32 value converted to bf16 and straight back inside one
@@ -67,6 +83,7 @@ import torch
 
 from blurred_gan_tpu import models as jmodels
 from blurred_gan_tpu.data.pipeline import ArrayDataset as JaxArrayDataset
+from blurred_gan_tpu.sched.blur import AdaptiveBlurController as JaxAdaptive
 from blurred_gan_tpu.sched.blur import BlurDecayController as JaxBlurDecay
 from blurred_gan_tpu.train import BlurredWGANGPHyperParameters as JaxHP
 from blurred_gan_tpu.train.loop import Trainer as JaxTrainer, TrainerConfig as JaxTrainerConfig
@@ -75,7 +92,8 @@ from blurred_gan_tpu.train.step import make_train_step as jax_step
 from blurred_gan_tpu_torch import quality
 from blurred_gan_tpu_torch.convert import flax_to_torch
 from blurred_gan_tpu_torch.data.pipeline import ArrayDataset
-from blurred_gan_tpu_torch.sched.blur import BlurDecayController
+from blurred_gan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
+from blurred_gan_tpu_torch.sched.blur import AdaptiveBlurController, BlurDecayController
 from blurred_gan_tpu_torch.train.config import BlurredWGANGPHyperParameters
 from blurred_gan_tpu_torch.train.loop import Trainer, TrainerConfig
 from blurred_gan_tpu_torch.train.state import GAN, create_train_state
@@ -93,23 +111,49 @@ ARMS = {
     3: dict(config="celeba64", steps=2, hp=dict(reference_grad_scale=True)),
     4: dict(config="mnist", steps=2),
     5: dict(config="celeba64_sharp", steps=2, dtype="bfloat16"),
+    6: dict(config="celeba64", steps=2, upsample="resize"),
+    7: dict(config="celeba64", steps=2, hp=dict(g_learning_rate=0.002)),
+    8: dict(config="celeba64", steps=4, adaptive=True),
 }
+# Arm 8's controller over ``quality train``'s (σ₀ the surface's, changes
+# applied): no warm-up and no pause between changes, where the run's
+# controller waits 100 batches for each.
+ADAPTIVE = dict(warmup_n_batches=0, delay_between_modifications=1)
+# The celeba64 layout at narrow widths: five generator blocks from 4² to 64²,
+# five stride-2 critic convolutions.
+NARROW_G = dict(init_hw=(4, 4), init_features=8,
+                blocks=((8, 1), (8, 2), (4, 2), (4, 2), (4, 2)), out_channels=3)
+NARROW_D = (4, 4, 8, 8, 8)
 RUN_EXAMPLES = {"mnist": 180_000, "celeba64": 60_000, "celeba64_sharp": 60_000}
 
 
-def jax_networks(cfg: quality.ParityConfig, dtype: str):
+def jax_networks(cfg: quality.ParityConfig, dtype: str, upsample: str = "transpose",
+                 narrow: bool = False):
     dt = jnp.dtype(dtype)
-    if cfg.arch == "mnist":
+    if narrow:
+        assert cfg.arch == "celeba64", cfg.arch
+        g = jmodels.DCGANGenerator(latent_size=quality.LATENT, compute_dtype=dt,
+                                   upsample=upsample, **NARROW_G)
+        d = jmodels.DCGANDiscriminator(channels=NARROW_D, compute_dtype=dt)
+    elif cfg.arch == "mnist":
         g, d = jmodels.mnist_generator(compute_dtype=dt), jmodels.mnist_discriminator(compute_dtype=dt)
     else:
         res = cfg.image_shape[0]
-        g = jmodels.celeba_generator(res, compute_dtype=dt)
+        g = jmodels.celeba_generator(res, compute_dtype=dt, upsample=upsample)
         d = jmodels.celeba_discriminator(res, compute_dtype=dt)
     return g, d.clone(dropout_rate=0.0)
 
 
-def port_networks(cfg: quality.ParityConfig, dtype: str):
-    g, d = quality.networks(cfg, getattr(torch, dtype))
+def port_networks(cfg: quality.ParityConfig, dtype: str, upsample: str = "transpose",
+                  narrow: bool = False):
+    dt = getattr(torch, dtype)
+    if narrow:
+        g = DCGANGenerator(latent_size=quality.LATENT, compute_dtype=dt, upsample=upsample,
+                           **NARROW_G)
+        d = DCGANDiscriminator(channels=NARROW_D, image_hw=cfg.image_shape[:2],
+                               compute_dtype=dt)
+    else:
+        g, d = quality.networks(cfg, dt, upsample)
     d.dropout_rate = 0.0
     return g, d
 
@@ -165,13 +209,18 @@ def rel_l2(got, want):
     return None if den == 0.0 else float(np.linalg.norm(got - want) / den)
 
 
-def jax_trajectory(jgan, jhp, state0, batches, sigma, dtype, compile_mode):
-    """(states, metrics) of ``len(batches)`` JAX steps; ``compile_mode`` is
-    ``exact`` (no excess precision off float32) or ``default``."""
+def jax_trajectory(jgan, jhp, state0, batches, sigma, dtype, compile_mode, controller=None):
+    """(states, metrics, controller trace) of ``len(batches)`` JAX steps;
+    ``compile_mode`` is ``exact`` (no excess precision off float32) or
+    ``default``. With a ``controller`` each step's σ is its state's, updated
+    from the step's scores (:func:`controller_trace`)."""
     step = jax_step(jgan, jhp, donate_state=False)
     states, metrics = [state0], []
+    ctrl = controller.init() if controller else None
+    trace = []
     for i, reals in enumerate(batches):
-        args = (states[-1], jnp.asarray(reals), jnp.float32(sigma), jax.random.PRNGKey(KEY0 + i))
+        s = ctrl.std if ctrl else sigma
+        args = (states[-1], jnp.asarray(reals), jnp.float32(s), jax.random.PRNGKey(KEY0 + i))
         if i == 0:
             step = (exact_rounding(step, dtype, *args) if compile_mode == "exact"
                     else step.lower(*args).compile())
@@ -179,18 +228,36 @@ def jax_trajectory(jgan, jhp, state0, batches, sigma, dtype, compile_mode):
         state, m, _ = step(*args)
         states.append(jax.tree_util.tree_map(np.asarray, state))
         metrics.append({k: float(v) for k, v in m.items()})
+        if ctrl:
+            ctrl = controller_trace(controller, ctrl, i, s, metrics[-1], trace)
         print(f"[jax {compile_mode}] step {i}: {time.time() - t0:.1f} s", flush=True)
-    return states, metrics
+    return states, metrics, trace
 
 
-def port_trajectory(cfg, hp, dtype, state0, batches, sigma):
+def controller_trace(controller, ctrl, i, sigma, metrics, trace):
+    """Feed step ``i``'s scores to ``controller`` with the batch count after
+    the step, as both host loops do; record the σ the step ran at and the
+    state after it in ``trace``; returns the new state."""
+    ctrl, _ = controller.update(ctrl, i + 1, metrics["fake_scores"], metrics["real_scores"])
+    trace.append({"sigma_in": sigma, "sigma_after": ctrl.std,
+                  "score_ratio": ctrl.score_ratio,
+                  "last_modification_batch": ctrl.last_modification_batch})
+    return ctrl
+
+
+def port_trajectory(cfg, hp, dtype, state0, batches, sigma, upsample="transpose",
+                    narrow=False, controller=None):
     """((parameters, first moments) of both networks, flat, before and after
-    each step; metrics; the GAN) of the port's steps from the JAX ``state0``."""
-    gan = GAN(*port_networks(cfg, dtype), blurred=True)
+    each step; metrics; the GAN; the controller trace; the optimizers'
+    learning rates) of the port's steps from the JAX ``state0``."""
+    gan = GAN(*port_networks(cfg, dtype, upsample, narrow), blurred=True)
     state = create_train_state(gan, hp, device="cpu")
     load_jax_state(state, state0)
     state.n_img = state.n_batches * B
     step = make_train_step(gan, hp)
+    lrs = {"generator": state.g_opt.param_groups[0]["lr"],
+           "discriminator": state.d_opt.param_groups[0]["lr"]}
+
     def snapshot():
         return ((flat(state.generator), flat(state.discriminator)),
                 (flat_moment(state.g_opt, state.generator),
@@ -198,15 +265,32 @@ def port_trajectory(cfg, hp, dtype, state0, batches, sigma):
 
     params = [snapshot()]
     metrics = []
+    ctrl = controller.init() if controller else None
+    trace = []
     for i, reals in enumerate(batches):
+        s = ctrl.std if ctrl else sigma
         noise = {k: torch.from_numpy(v.copy())
                  for k, v in draws(jax.random.PRNGKey(KEY0 + i)).items()}
         t0 = time.time()
-        m, _ = step(state, torch.from_numpy(reals), sigma, noise=noise)
+        m, _ = step(state, torch.from_numpy(reals), s, noise=noise)
         metrics.append({k: float(v) for k, v in m.items()})
         params.append(snapshot())
+        if ctrl:
+            ctrl = controller_trace(controller, ctrl, i, s, metrics[-1], trace)
         print(f"[port] step {i}: {time.time() - t0:.1f} s", flush=True)
-    return params, metrics, gan
+    return params, metrics, gan, trace, lrs
+
+
+def adam_rate(side, j):
+    """The learning rate of network ``j``'s first Adam update from a fresh
+    state: an element moves by ``lr·g/(|g| + ε)`` (both bias corrections
+    give ``m̂ = g``, ``v̂ = g²``), so the median of ``|Δp|·(|g| + ε)/|g|`` over
+    the elements whose gradient is far from 0, with ``g`` read back from the
+    first moment."""
+    (p0, _), (p1, m1) = [(snap[0][j], snap[1][j]) for snap in side[:2]]
+    g = m1 / (1 - BETA1)
+    big = np.abs(g) > 1e-3 * np.abs(g).max()
+    return float(np.median(np.abs(p1 - p0)[big] * (np.abs(g[big]) + 1e-7) / np.abs(g[big])))
 
 
 def compare(name, side_a, metrics_a, side_b, metrics_b, step_i):
@@ -323,32 +407,103 @@ def _roundings(text: str, depth: int = 2) -> collections.Counter:
     return out
 
 
-def run_arm(n: int, emit) -> None:
+def run_arm(n: int, emit, narrow: bool = False) -> None:
+    """Arm ``n``'s steps on both sides, a line per step and comparison to
+    ``emit``; ``narrow``: the layout at :data:`NARROW_G` / :data:`NARROW_D`."""
     arm = ARMS[n]
     cfg = quality.CONFIGS[arm["config"]]
     dtype = arm.get("dtype", "float32")
+    upsample = arm.get("upsample", "transpose")
     hp_kw = arm.get("hp", {})
     sigma = float(cfg.sigma0)
     jhp = JaxHP(batch_size=B, global_batch_size=B, **hp_kw)
     hp = BlurredWGANGPHyperParameters(batch_size=B, global_batch_size=B, **hp_kw)
-    jgan = JaxGAN(*jax_networks(cfg, dtype), blurred=True)
+    controllers = ((AdaptiveBlurController(max_value=sigma, **ADAPTIVE),
+                    JaxAdaptive(max_value=sigma, **ADAPTIVE))
+                   if arm.get("adaptive") else (None, None))
+    jgan = JaxGAN(*jax_networks(cfg, dtype, upsample, narrow), blurred=True)
     state0 = jax.tree_util.tree_map(
         np.asarray, jax_state(jgan, jhp, jax.random.PRNGKey(3), cfg.image_shape))
     batches = reals_batches(cfg, arm["steps"])
-    port_params, port_metrics, gan = port_trajectory(cfg, hp, dtype, state0, batches, sigma)
+    port_params, port_metrics, gan, port_trace, port_lrs = port_trajectory(
+        cfg, hp, dtype, state0, batches, sigma, upsample, narrow, controllers[0])
     scratch = (copy.deepcopy(gan.generator), copy.deepcopy(gan.discriminator))
     modes = ("exact", "default") if dtype != "float32" else ("exact",)
-    jax_sides = {}
+    jax_sides, jax_traces = {}, {}
     for mode in modes:
-        states, metrics = jax_trajectory(jgan, jhp, state0, batches, sigma, dtype, mode)
+        states, metrics, jax_traces[mode] = jax_trajectory(
+            jgan, jhp, state0, batches, sigma, dtype, mode, controllers[1])
         jax_sides[mode] = ([jax_side(scratch, s) for s in states], metrics)
     pairs = [("port_vs_jax_" + m, (port_params, port_metrics), jax_sides[m]) for m in modes]
     if "default" in jax_sides:
         pairs.append(("jax_default_vs_jax_exact", jax_sides["default"], jax_sides["exact"]))
+    head = {"arm": n, "config": cfg.name, "dtype": dtype, "hp": hp_kw}
+    if upsample != "transpose":
+        head["upsample"] = upsample
+    if arm.get("adaptive"):
+        head["adaptive"] = ADAPTIVE
+    if narrow:
+        head["narrow"] = True
     for name, (pa, ma), (pb, mb) in pairs:
         for i in range(arm["steps"]):
-            emit(dict({"arm": n, "config": cfg.name, "dtype": dtype, "hp": hp_kw},
-                      **compare(name, pa, ma[i], pb, mb[i], i)))
+            line = dict(head, **compare(name, pa, ma[i], pb, mb[i], i))
+            if name.startswith("port_vs_jax_"):
+                if "g_learning_rate" in hp_kw and i == 0:
+                    nets = ("generator", "discriminator")
+                    line["adam_lr"] = {
+                        "port_set": port_lrs,
+                        "port": {net: adam_rate(pa, j) for j, net in enumerate(nets)},
+                        "jax": {net: adam_rate(pb, j) for j, net in enumerate(nets)}}
+                if port_trace:
+                    jt = jax_traces[name[len("port_vs_jax_"):]][i]
+                    line["controller"] = {"port": port_trace[i], "jax": jt,
+                                          "sigma_equal": port_trace[i]["sigma_after"]
+                                          == jt["sigma_after"]}
+            emit(line)
+
+
+def generator_rounding(emit) -> None:
+    """How far float32 rounding alone moves the celeba64 generator, per
+    upsampler: JAX's float32 and the port's float32 train-mode forward and
+    parameter VJP (one random cotangent) against JAX's in float64 (BatchNorm
+    and the output too), from the same ``PRNGKey(0)`` weights. A port whose
+    distance to that reference is of the size of JAX's own float32 one
+    differs from JAX by rounding, not by what it computes."""
+    cfg = quality.CONFIGS["celeba64"]
+    res = cfg.image_shape[0]
+    z = np.random.RandomState(0).rand(B, quality.LATENT).astype(np.float32)
+    cot = np.random.RandomState(1).randn(B, *cfg.image_shape).astype(np.float32)
+    for upsample in ("transpose", "resize"):
+        variables = jmodels.celeba_generator(res, upsample=upsample).init(
+            jax.random.PRNGKey(0), jnp.asarray(z), train=False)
+        port = quality.networks(cfg, upsample=upsample)[0]
+        flax_to_torch(port, variables["params"], variables["batch_stats"])
+        port.train()
+        out = port(torch.from_numpy(z)).permute(0, 2, 3, 1)
+        (out * torch.from_numpy(cot)).sum().backward()
+        sides = {"port_f32": (out.detach().to(torch.float64).numpy(),
+                              np.concatenate([p.grad.to(torch.float64).reshape(-1).numpy()
+                                              for p in port.parameters()]))}
+        scratch = copy.deepcopy(port)
+        with jax.enable_x64(True):
+            for name, dt in (("jax_f32", jnp.float32), ("jax_f64", jnp.float64)):
+                kw = dict(output_f32=False, bn_dtype=jnp.float64) if dt == jnp.float64 else {}
+                gen = jmodels.celeba_generator(res, upsample=upsample, compute_dtype=dt, **kw)
+                v = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dt), variables)
+
+                def forward(params):
+                    return gen.apply({"params": params, "batch_stats": v["batch_stats"]},
+                                     jnp.asarray(z, dt), train=True, mutable=["batch_stats"])[0]
+
+                y, vjp = jax.vjp(forward, v["params"])
+                (grads,) = vjp(jnp.asarray(cot, y.dtype))
+                grads = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), grads)
+                sides[name] = (np.asarray(y, np.float64), jax_flat(scratch, grads))
+        ref_out, ref_grad = sides.pop("jax_f64")
+        emit({"generator_rounding": upsample, "config": cfg.name, "against": "jax_f64",
+              **{name: {"out_max_abs": float(np.abs(o - ref_out).max()),
+                        "grad_rel_l2": rel_l2(g, ref_grad)}
+                 for name, (o, g) in sides.items()}})
 
 
 # ---------------------------------------------------------------------------
@@ -380,8 +535,6 @@ def _metrics(sigma):
 
 
 def port_schedule(cfg, examples, seed, images, log_dir):
-    from blurred_gan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
-
     gan = GAN(DCGANGenerator(**TINY_G), DCGANDiscriminator(channels=(4,), image_hw=(8, 8)),
               latent_size=TINY_G["latent_size"])
     hp = BlurredWGANGPHyperParameters(batch_size=B, global_batch_size=B)
@@ -463,6 +616,9 @@ def main(argv=None) -> None:
     p.add_argument("--hlo", action="store_true",
                    help="also arm 5's bfloat16 roundings in JAX's two compiles, the step's "
                         "and its generator's")
+    p.add_argument("--rounding", action="store_true",
+                   help="also the celeba64 generator's float32 rounding on both sides "
+                        "against JAX's float64, per upsampler")
     p.add_argument("--seeds", default="0,6", help="the schedule check's seeds")
     p.add_argument("--threads", type=int, default=4, help="torch intra-op threads")
     p.add_argument("--out", default="", help="also append every line to this JSONL file")
@@ -480,6 +636,8 @@ def main(argv=None) -> None:
 
     for n in (int(a) for a in args.arms.split(",") if a):
         run_arm(n, emit)
+    if args.rounding:
+        generator_rounding(emit)
     if args.hlo:
         hlo_roundings(emit)
         hlo_generator_roundings(emit)
