@@ -83,3 +83,27 @@ def test_arm_steps_match_jax(name):
         assert last["sigma_after"] < first["sigma_in"]
     else:
         assert all("controller" not in ln for ln in lines)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_long_free_run(n):
+    """Plain, ``--d_steps 2`` and ``--ref_grad_scale`` for six steps with
+    each side running freely (``long_arm``): the losses, the generator step's
+    gate, both networks' parameters, the generator's running statistics and
+    the eval generator's output stay with JAX's after every step. The losses
+    are held at 1e-4 of their scale: free, the two sides' parameters part by
+    rounding step after step (the six-step run of arm 3 reaches 1.8e-5)."""
+    lines = []
+    harness.long_arm(n, 6, lines.append, narrow=True)
+    assert [ln["step"] for ln in lines] == list(range(6))
+    for ln in lines:
+        losses = ln["losses"]
+        scale = abs(losses["real_scores"]["want"])
+        for key in ("disc_loss", "gen_loss"):
+            got, want = losses[key]["got"], losses[key]["want"]
+            assert abs(got - want) <= 1e-4 * max(abs(want), scale), (n, ln["step"], key)
+        gen = losses["did_gen_step"]
+        assert gen["got"] == gen["want"] == (1.0 if n != 2 or ln["step"] % 2 == 0 else 0.0)
+        assert max(ln["params_rel_l2"].values()) < 1e-3, (n, ln["step"], ln["params_rel_l2"])
+        assert ln["running_stats_rel_l2"] < 1e-5, (n, ln["step"])
+        assert ln["eval_out"]["max_abs"] < 1e-4, (n, ln["step"], ln["eval_out"])

@@ -35,6 +35,13 @@ share masks). Arms:
 ``--rounding`` measures how far float32 rounding alone moves the celeba64
 generator on each side, per upsampler (:func:`generator_rounding`).
 
+``--long 1,2,3`` runs each listed float32 arm for :data:`LONG_STEPS`
+steps on both sides from the same JAX state, each side free, and after
+every step sets the port's state beside JAX's: the losses, each network's
+parameters, the generator's BatchNorm running statistics and the eval
+generator's output on fixed latents (:func:`long_arm`). An arm's drift is
+read beside the plain arm's (1) over the same steps.
+
 :func:`run_arm` with ``narrow=True`` builds the celeba64 layout at a few
 channels a layer (:data:`NARROW_G`, :data:`NARROW_D`): the same stages,
 kernels and strides (``tests/test_torch_arm_parity.py``).
@@ -125,6 +132,8 @@ NARROW_G = dict(init_hw=(4, 4), init_features=8,
                 blocks=((8, 1), (8, 2), (4, 2), (4, 2), (4, 2)), out_channels=3)
 NARROW_D = (4, 4, 8, 8, 8)
 RUN_EXAMPLES = {"mnist": 180_000, "celeba64": 60_000, "celeba64_sharp": 60_000}
+# Steps of each ``--long`` free run.
+LONG_STEPS = 24
 
 
 def jax_networks(cfg: quality.ParityConfig, dtype: str, upsample: str = "transpose",
@@ -462,6 +471,73 @@ def run_arm(n: int, emit, narrow: bool = False) -> None:
             emit(line)
 
 
+def running_stats(module) -> np.ndarray:
+    """The BatchNorm running means and variances of ``module``, flat."""
+    return np.concatenate([b.detach().to(torch.float64).reshape(-1).numpy()
+                           for name, b in module.named_buffers() if "running_" in name])
+
+
+def long_arm(n: int, steps: int, emit, narrow: bool = False) -> None:
+    """Float32 arm ``n`` for ``steps`` steps on both sides from one JAX
+    state (the draws handed over as :func:`run_arm` does), each side running
+    freely. After each step, one line: the losses; the relative L2 of each
+    network's parameters and of the generator's running statistics against
+    JAX's at the same step (JAX's state read into a copy of the port's
+    networks); the eval generator's output on the first 64 eval latents,
+    its largest difference and relative L2; and JAX's output's largest
+    change since step 0, the scale the difference is read against."""
+    arm = ARMS[n]
+    cfg = quality.CONFIGS[arm["config"]]
+    if arm.get("dtype", "float32") != "float32" or arm.get("adaptive"):
+        raise SystemExit(f"arm {n}: --long takes the float32 arms at a fixed sigma")
+    upsample = arm.get("upsample", "transpose")
+    hp_kw = arm.get("hp", {})
+    sigma = float(cfg.sigma0)
+    jhp = JaxHP(batch_size=B, global_batch_size=B, **hp_kw)
+    hp = BlurredWGANGPHyperParameters(batch_size=B, global_batch_size=B, **hp_kw)
+    jgan = JaxGAN(*jax_networks(cfg, "float32", upsample, narrow), blurred=True)
+    jstate = jax.tree_util.tree_map(
+        np.asarray, jax_state(jgan, jhp, jax.random.PRNGKey(3), cfg.image_shape))
+    gan = GAN(*port_networks(cfg, "float32", upsample, narrow), blurred=True)
+    state = create_train_state(gan, hp, device="cpu")
+    load_jax_state(state, jstate)
+    port_step, jstep = make_train_step(gan, hp), jax.jit(jax_step(jgan, jhp, donate_state=False))
+    jgen = jax.jit(lambda p, st, z: jgan.generate(p, st, z, train=False)[0])
+    scratch = (copy.deepcopy(gan.generator), copy.deepcopy(gan.discriminator))
+    z = quality.eval_latents()[:2 * B]
+    out0 = np.asarray(jgen(jstate.g_params, jstate.g_stats, jnp.asarray(z)), np.float64)
+    head = {"long": n, "config": cfg.name, "hp": hp_kw}
+    if narrow:
+        head["narrow"] = True
+    for i, reals in enumerate(reals_batches(cfg, steps)):
+        key = jax.random.PRNGKey(KEY0 + i)
+        t0 = time.time()
+        jstate, jm, _ = jstep(jstate, jnp.asarray(reals), jnp.float32(sigma), key)
+        jstate = jax.tree_util.tree_map(np.asarray, jstate)
+        noise = {k: torch.from_numpy(v.copy()) for k, v in draws(key).items()}
+        pm, _ = port_step(state, torch.from_numpy(reals), sigma, noise=noise)
+        flax_to_torch(scratch[0], jstate.g_params, jstate.g_stats)
+        flax_to_torch(scratch[1], jstate.d_params)
+        with torch.no_grad():
+            got = gan.generate(torch.from_numpy(z), train=False).permute(0, 2, 3, 1)
+        got = got.to(torch.float64).numpy()
+        want = np.asarray(jgen(jstate.g_params, jstate.g_stats, jnp.asarray(z)), np.float64)
+        losses = {}
+        for k in sorted(set(pm) & set(jm)):
+            a, b = float(pm[k]), float(jm[k])
+            losses[k] = {"got": a, "want": b, "rel": None if b == 0 else abs(a - b) / abs(b)}
+        emit(dict(head, step=i, losses=losses,
+                  params_rel_l2={"generator": rel_l2(flat(gan.generator), flat(scratch[0])),
+                                 "discriminator": rel_l2(flat(gan.discriminator),
+                                                         flat(scratch[1]))},
+                  running_stats_rel_l2=rel_l2(running_stats(gan.generator),
+                                              running_stats(scratch[0])),
+                  eval_out={"max_abs": float(np.abs(got - want).max()),
+                            "rel_l2": rel_l2(got.ravel(), want.ravel()),
+                            "jax_change_since_step0_max_abs": float(np.abs(want - out0).max())},
+                  seconds=round(time.time() - t0, 1)))
+
+
 def generator_rounding(emit) -> None:
     """How far float32 rounding alone moves the celeba64 generator, per
     upsampler: JAX's float32 and the port's float32 train-mode forward and
@@ -619,6 +695,8 @@ def main(argv=None) -> None:
     p.add_argument("--rounding", action="store_true",
                    help="also the celeba64 generator's float32 rounding on both sides "
                         "against JAX's float64, per upsampler")
+    p.add_argument("--long", default="", help="float32 arms to run for LONG_STEPS steps, "
+                                              "both sides free (e.g. 1,2,3)")
     p.add_argument("--seeds", default="0,6", help="the schedule check's seeds")
     p.add_argument("--threads", type=int, default=4, help="torch intra-op threads")
     p.add_argument("--out", default="", help="also append every line to this JSONL file")
@@ -636,6 +714,8 @@ def main(argv=None) -> None:
 
     for n in (int(a) for a in args.arms.split(",") if a):
         run_arm(n, emit)
+    for n in (int(a) for a in args.long.split(",") if a):
+        long_arm(n, LONG_STEPS, emit)
     if args.rounding:
         generator_rounding(emit)
     if args.hlo:

@@ -4,15 +4,20 @@ throw-away machine should bring back.
 
     python tests/torch_quality_sweep.py --out out/quality \\
         --runs heavy64:celeba64:resize,ttur,adaptive:6-11 \\
+        --runs heavy64_tpu:celeba64:plain,d2,refscale:12-23:tpu \\
         --rows_from heavy64=results/quality/torch/celeba64/card/eval_torch_d2_s678.jsonl \\
         [--keep heavy64/torch_resize_s6] [--work $TMPDIR/sweep]
 
-``--runs`` takes ``<name>:<config>:<arms>:<seeds>[:<examples>]`` (repeated):
-``python -m blurred_gan_tpu_torch.quality train`` of each arm (``plain``,
-``bf16``, ``resize``, ``ttur`` at 0.002, ``adaptive``; :data:`ARM_FLAGS`) and
-seed (``a-b`` or a comma list) into ``<work>/<name>/``, 60,000 examples
-unless given, ``--concurrent`` (6) at a time, each run's checkpoints removed
-when it ends. Then, for each name:
+``--runs`` takes ``<name>:<config>:<arms>:<seeds>[:<examples>][:tpu]``
+(repeated): ``python -m blurred_gan_tpu_torch.quality train`` of each arm
+(``plain``, ``bf16``, ``resize``, ``ttur`` at 0.002, ``adaptive``, ``d2``,
+``refscale``; :data:`ARM_FLAGS`) and seed (``a-b`` or a comma list) into
+``<work>/<name>/``, 60,000 examples unless given, ``--concurrent`` (6) at a
+time, each run's checkpoints removed when it ends. A trailing ``:tpu`` trains
+the name's runs through ``tests/torch_tpu_precision.py train`` (every product
+of the networks as a TPU's DEFAULT float32), and a run of such a name whose
+meta lacks ``"tpu_precision"`` or counts no product fails; its files carry
+the plain arms' names, so give it a name of its own. Then, for each name:
 
 - ``evaluate`` of each seed in a process of its own (four at a time;
   ``eval_<name>_s<seed>.jsonl``), then one ``evaluate --pool``
@@ -50,10 +55,14 @@ import time
 import numpy as np
 
 ARM_FLAGS = {"plain": [], "bf16": ["--bf16"], "resize": ["--gen_upsample", "resize"],
-             "ttur": ["--ttur_g_lr", "0.002"], "adaptive": ["--adaptive"]}
+             "ttur": ["--ttur_g_lr", "0.002"], "adaptive": ["--adaptive"],
+             "d2": ["--d_steps", "2"], "refscale": ["--ref_grad_scale"]}
 EVAL_CONCURRENT = 4  # evaluate and diagnose processes at once (their FIDs' sqrtm is on the host)
 PREFIX = {"plain": "torch", "bf16": "torch_bf16", "resize": "torch_resize",
-          "ttur": "torch_ttur", "adaptive": "torch_adaptive"}
+          "ttur": "torch_ttur", "adaptive": "torch_adaptive", "d2": "torch_d2",
+          "refscale": "torch_refscale"}
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HARNESS = os.path.join(ROOT, "tests", "torch_tpu_precision.py")
 
 
 def seeds_of(text: str):
@@ -64,25 +73,55 @@ def seeds_of(text: str):
 
 
 def parse_runs(specs):
-    """{name: (config, arms, seeds, examples)} of the ``--runs`` specs."""
+    """{name: (config, arms, seeds, examples, tpu)} of the ``--runs`` specs."""
     out = {}
     for spec in specs:
         parts = spec.split(":")
+        tpu = parts[-1] == "tpu"
+        if tpu:
+            parts = parts[:-1]
         name, config, arms, seeds = parts[:4]
         examples = int(parts[4]) if len(parts) > 4 else 60_000
         arms = arms.split(",")
         unknown = set(arms) - set(ARM_FLAGS)
         if unknown:
             raise SystemExit(f"unknown arms {sorted(unknown)}; known: {sorted(ARM_FLAGS)}")
-        out[name] = (config, arms, seeds_of(seeds), examples)
+        out[name] = (config, arms, seeds_of(seeds), examples, tpu)
     return out
 
 
+def train_cmd(config, arm, seed, examples, out, *, tpu=False, concurrent=1, device="cuda"):
+    """The command line that trains one run: ``quality train``, or the TPU
+    precision harness's ``train`` with the same flags."""
+    head = [sys.executable, HARNESS] if tpu else [sys.executable, "-m",
+                                                  "blurred_gan_tpu_torch.quality"]
+    return head + ["train", "--config", config, "--examples", str(examples),
+                   "--seed", str(seed), "--out", out, "--concurrent_runs", str(concurrent),
+                   "--device", device] + ARM_FLAGS[arm]
+
+
+def meta_fault(path, tpu):
+    """Why the run whose meta is ``path`` failed, or None: no meta, or (asked
+    for the harness) no ``"tpu_precision"`` with a nonzero count of products."""
+    if not os.path.exists(path):
+        return f"{path}: no meta"
+    if not tpu:
+        return None
+    with open(path) as f:
+        record = json.load(f).get("tpu_precision") or {}
+    if not record.get("products"):
+        return f"{path}: no products through the TPU precision harness"
+    return None
+
+
 def run(cmd, log_path, remove=""):
-    """Run ``cmd`` with its output to ``log_path``, then remove the directory
+    """Run ``cmd`` with its output to ``log_path`` (the repository's root on
+    its ``PYTHONPATH``, for the harness), then remove the directory
     ``remove`` if given; its exit code."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
     with open(log_path, "w") as log:
-        rc = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT).returncode
+        rc = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT, env=env).returncode
     if remove:
         shutil.rmtree(remove, ignore_errors=True)
     return rc
@@ -112,7 +151,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--runs", action="append", required=True,
-                   help="<name>:<config>:<arms>:<seeds>[:<examples>] (repeatable)")
+                   help="<name>:<config>:<arms>:<seeds>[:<examples>][:tpu] (repeatable)")
     p.add_argument("--out", required=True)
     p.add_argument("--work", default="", help="run directories (default: a temporary one)")
     p.add_argument("--rows_from", action="append", default=[],
@@ -135,26 +174,25 @@ def main(argv=None) -> int:
     print(json.dumps({"card": report["card"]}), flush=True)
 
     t0 = time.time()
-    n_runs = sum(len(arms) * len(seeds) for _, arms, seeds, _ in runs.values())
-    jobs = []
-    for name, (config, arms, seeds, examples) in runs.items():
+    n_runs = sum(len(arms) * len(seeds) for _, arms, seeds, _, _ in runs.values())
+    jobs, metas = [], []
+    for name, (config, arms, seeds, examples, tpu) in runs.items():
         d = os.path.join(work, name)
         os.makedirs(d, exist_ok=True)
         for seed in seeds:
             for arm in arms:
-                cmd = py + ["blurred_gan_tpu_torch.quality", "train", "--config", config,
-                            "--examples", str(examples), "--seed", str(seed), "--out", d,
-                            "--concurrent_runs", str(min(args.concurrent, n_runs)),
-                            "--device", args.device]
-                cmd += ARM_FLAGS[arm]
+                cmd = train_cmd(config, arm, seed, examples, d, tpu=tpu,
+                                concurrent=min(args.concurrent, n_runs), device=args.device)
                 jobs.append((cmd, os.path.join(d, f"train_{PREFIX[arm]}_s{seed}.log"),
                              os.path.join(d, f"{PREFIX[arm]}_log_s{seed}", "checkpoints")))
+                metas.append((os.path.join(d, f"{PREFIX[arm]}_meta_s{seed}.json"), tpu))
     report["failed"] += in_pool(jobs, args.concurrent)
+    report["failed"] += [fault for fault in (meta_fault(*m) for m in metas) if fault]
     report["seconds"]["train"] = round(time.time() - t0, 1)
 
     t0 = time.time()
     jobs = []
-    for name, (config, arms, seeds, _) in runs.items():
+    for name, (config, arms, seeds, _, _) in runs.items():
         d = os.path.join(work, name)
         for seed in seeds:
             jobs.append((py + ["blurred_gan_tpu_torch.quality", "evaluate", "--config", config,
@@ -170,7 +208,7 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     jobs = []
-    for name, (config, arms, seeds, _) in runs.items():
+    for name, (config, arms, seeds, _, _) in runs.items():
         if arms == ["plain"] and name not in rows_from:
             continue  # no arm to pair with the plain runs
         d = os.path.join(work, name)
@@ -186,7 +224,7 @@ def main(argv=None) -> int:
     report["failed"] += in_pool(jobs, EVAL_CONCURRENT)
     report["seconds"]["pool"] = round(time.time() - t0, 1)
 
-    for name, (config, arms, seeds, _) in runs.items():
+    for name, (config, arms, seeds, _, tpu) in runs.items():
         d, out = os.path.join(work, name), os.path.join(args.out, name)
         os.makedirs(out, exist_ok=True)
         kept = glob.glob(os.path.join(d, "*.json*")) + glob.glob(os.path.join(d, "*.log"))
@@ -204,7 +242,7 @@ def main(argv=None) -> int:
             with open(os.path.join(out, fname), "w") as f:
                 f.write("\n".join(text) + "\n")
         report["runs"][name] = {"config": config, "arms": arms, "seeds": seeds,
-                                "sets": len(lines["samples_sha256.txt"])}
+                                "tpu_precision": tpu, "sets": len(lines["samples_sha256.txt"])}
     for item in args.keep:
         name, stem = item.split("/", 1)
         prefix, seed = stem.rsplit("_s", 1)

@@ -11,9 +11,15 @@ wrote (the first file holding a row wins).
     # two sets of rows of one stack: medians, ranges, Mann-Whitney U per metric
     PYTHONPATH=. python tests/torch_quality_verdicts.py spread --rows <JSONL>,... \\
         --a ours --a_seeds 0-5 --b torch --b_seeds 0-5
-    # an arm against the plain run over paired seeds, with the collapses
-    PYTHONPATH=. python tests/torch_quality_verdicts.py pairs --rows <JSONL>,... \\
-        --b torch_bf16 --seeds 0-11
+    # an arm against a base arm over paired seeds, with the collapses
+    PYTHONPATH=. python tests/torch_quality_verdicts.py pairs --seeds 0-11 \\
+        --arm torch=torch@<JSONL>,... --arm torch_bf16=torch_bf16@<JSONL>,...
+    # collapses of two arms over the same seeds, two-sided Fisher exact p
+    PYTHONPATH=. python tests/torch_quality_verdicts.py collapse --seeds 0-23 \\
+        --arm f32=torch@<JSONL>,... --arm tpu=torch@<JSONL>,...
+    # where JAX's per-seed gaps of an arm fall among the port's
+    PYTHONPATH=. python tests/torch_quality_verdicts.py rank --arms d2,refscale \\
+        --seeds 6-23 --rows <JSONL>,... --jax <recorded JAX JSONL>,...
 
 ``arms``: for each of ``resize``, ``ttur`` and ``adaptive`` with rows, the
 per-seed gaps ``(arm − plain) / |plain|`` of ``torch_<arm>_s<S>`` against
@@ -28,14 +34,35 @@ their mean; and the verdict:
 - ``ttur`` and ``adaptive`` reproduce when, on fid_randconv and on KID each,
   the port's gap of the medians has the sign of JAX's mean gap, or JAX's
   seeds disagree in sign and the port's seeds do too.
+
+``--arm <label>=<prefix>@<JSONL>,...`` reads the rows named
+``<prefix>_s<seed>`` of those files alone, under the label: the TPU
+precision harness's files reuse the plain arms' names, so an arm trained
+under it is read from its own directory.
+
+``collapse``: the sets of each of two arms whose fid_randconv exceeds 100
+(:data:`COLLAPSE`), and the two-sided Fisher exact p of the two counts,
+computed exactly; ``second_fewer_p_lt_0.05`` says whether the second arm
+collapses in fewer seeds than the first at p < 0.05.
+
+``rank``: for each arm and each of fid_randconv and KID, the port's
+per-seed gaps against the plain run, JAX's recorded per-seed gaps, and how
+many of the port's lie below each of JAX's. The arm *differs* on a metric
+when JAX's gaps all lie below all of the port's, or all above; if the
+values are exchangeable, either happens by chance with probability
+``1 / C(n + j, j)`` (n port seeds, j JAX seeds: 1/190 for 18 and 2). It
+*reproduces* on a metric otherwise; the arm's verdict is ``reproduces``
+(both metrics), ``differs`` (both) or ``undecided``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
-from typing import Dict, List, Sequence
+from fractions import Fraction
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -45,7 +72,8 @@ METRICS = ("SWDx1e3_avg", "fid_randconv", "kid")
 VERDICT_METRICS = ("fid_randconv", "kid")
 # The recorded JAX gap lines of each arm (benchmarks/quality_parity.py evaluate).
 JAX_GAP_KEYS = {"resize": "rel_gap_resize_vs_transpose", "ttur": "rel_gap_ttur_vs_sharedlr",
-                "adaptive": "rel_gap_adaptive_vs_openloop"}
+                "adaptive": "rel_gap_adaptive_vs_openloop", "d2": "rel_gap_d2_vs_d1",
+                "refscale": "rel_gap_refscale_vs_default"}
 BANDS = ("hi_12-24", "vhi_24+")
 # A set whose fid_randconv is past this has collapsed (a collapsed sharp-64 set read 253).
 COLLAPSE = ("fid_randconv", 100.0)
@@ -76,6 +104,55 @@ def load_rows(paths: Sequence[str]) -> Dict[str, dict]:
         if name and name not in rows:
             rows[name] = line
     return rows
+
+
+def arm_rows(spec: str) -> Tuple[str, Dict[int, dict]]:
+    """``<label>=<prefix>@<JSONL>,...``: the label and the rows named
+    ``<prefix>_s<seed>`` of those files, by seed."""
+    label, rest = spec.split("=", 1)
+    prefix, files = rest.split("@", 1)
+    out = {}
+    for name, r in load_rows(files.split(",")).items():
+        head, _, seed = name.rpartition("_s")
+        if head == prefix and seed.isdigit():
+            out[int(seed)] = r
+    return label, out
+
+
+def labelled(label: str, by_seed: Dict[int, dict]) -> Dict[str, dict]:
+    """Rows by seed renamed ``<label>_s<seed>``, as ``quality.pooled_stats``
+    reads them."""
+    return {f"{label}_s{s}": dict(r, samples=f"{label}_s{s}") for s, r in by_seed.items()}
+
+
+def fisher_exact(a: int, n_a: int, b: int, n_b: int) -> float:
+    """Two-sided Fisher exact p of ``a`` of ``n_a`` against ``b`` of
+    ``n_b``: with the margins fixed, the hypergeometric probability of every
+    table no likelier than the observed one, summed in exact fractions."""
+    k, n = a + b, n_a + n_b
+
+    def prob(x):
+        return Fraction(math.comb(n_a, x) * math.comb(n_b, k - x), math.comb(n, k))
+
+    observed = prob(a)
+    tables = range(max(0, k - n_b), min(k, n_a) + 1)
+    return float(sum(q for q in map(prob, tables) if q <= observed))
+
+
+def exchangeable_p(n: int, j: int) -> float:
+    """The chance that ``j`` given values of ``n + j`` exchangeable ones are
+    the ``j`` lowest (or, alike, the ``j`` highest): ``1 / C(n + j, j)``."""
+    return 1.0 / math.comb(n + j, j)
+
+
+def recorded_gaps(jax_lines: Sequence[dict], arm: str) -> Dict[int, dict]:
+    """The JAX package's recorded per-seed gaps of ``arm`` against its plain
+    run, by seed (the first line of a seed wins)."""
+    out = {}
+    for line in jax_lines:
+        if JAX_GAP_KEYS[arm] in line:
+            out.setdefault(line["seed"], line[JAX_GAP_KEYS[arm]])
+    return out
 
 
 def sign_set(values) -> set:
@@ -124,10 +201,7 @@ def cmd_arms(args) -> List[dict]:
             continue
         gaps = {s: quality.rel_gaps(rows[f"torch_s{s}"], rows[f"{side}_s{s}"]) for s in paired}
         pooled = quality.pooled_stats(rows, paired, "torch", side)
-        jax_gaps = {}
-        for line in jax_lines:
-            if JAX_GAP_KEYS[arm] in line:
-                jax_gaps.setdefault(line["seed"], line[JAX_GAP_KEYS[arm]])
+        jax_gaps = recorded_gaps(jax_lines, arm)
         bands = {s: diag[f"{side}_s{s}"]["band_ratio_vs_reals"] for s in paired
                  if f"{side}_s{s}" in diag}
         line = {"arm": arm, "seeds": paired,
@@ -171,23 +245,73 @@ def cmd_spread(args) -> List[dict]:
 
 
 def cmd_pairs(args) -> List[dict]:
-    rows = load_rows(args.rows.split(","))
+    (plain, a), (side, b) = map(arm_rows, args.arm)
+    rows = {**labelled(plain, a), **labelled(side, b)}
     seeds = seeds_of(args.seeds)
-    plain = "torch"
-    pooled = quality.pooled_stats(rows, seeds, plain, args.b)
+    pooled = quality.pooled_stats(rows, seeds, plain, side)
     key, limit = COLLAPSE
-    collapses = {side: [s for s in pooled["seeds"] if rows[f"{side}_s{s}"][key] > limit]
-                 for side in (plain, args.b)}
-    gaps = {s: quality.rel_gaps(rows[f"{plain}_s{s}"], rows[f"{args.b}_s{s}"])
+    collapses = {x: [s for s in pooled["seeds"] if rows[f"{x}_s{s}"][key] > limit]
+                 for x in (plain, side)}
+    gaps = {s: quality.rel_gaps(rows[f"{plain}_s{s}"], rows[f"{side}_s{s}"])
             for s in pooled["seeds"]}
-    return [{"pairs": f"{args.b}_vs_{plain}", "seeds": pooled["seeds"],
+    return [{"pairs": f"{side}_vs_{plain}", "seeds": pooled["seeds"],
              "gap_of_medians": {m: pooled["stats"][m]["rel_gap_median"] for m in METRICS},
              "median_of_gaps": {m: round(float(np.median([g[m] for g in gaps.values()])), 4)
                                 for m in METRICS},
              "wins": {m: pooled["stats"][m]["wins"] for m in METRICS},
-             "values": {side: {s: rows[f"{side}_s{s}"][key] for s in pooled["seeds"]}
-                        for side in (plain, args.b)},
+             "values": {x: {s: rows[f"{x}_s{s}"][key] for s in pooled["seeds"]}
+                        for x in (plain, side)},
              f"collapses_{key}_gt_{limit:g}": collapses}]
+
+
+def cmd_collapse(args) -> List[dict]:
+    seeds = seeds_of(args.seeds)
+    key, limit = COLLAPSE
+    arms = {}
+    for label, by_seed in map(arm_rows, args.arm):
+        missing = [s for s in seeds if s not in by_seed]
+        if missing:
+            raise SystemExit(f"arm {label}: no rows for seeds {missing}")
+        values = {s: by_seed[s][key] for s in seeds}
+        arms[label] = {"n": len(seeds), "collapsed": sum(v > limit for v in values.values()),
+                       "seeds": [s for s, v in values.items() if v > limit], "values": values}
+    (_, a), (_, b) = arms.items()
+    p = fisher_exact(a["collapsed"], a["n"], b["collapsed"], b["n"])
+    return [{"collapse": f"{key}_gt_{limit:g}", "seeds": seeds, "arms": arms,
+             "fisher_p_two_sided": round(p, 6),
+             "second_fewer_p_lt_0.05": bool(b["collapsed"] < a["collapsed"] and p < 0.05)}]
+
+
+def cmd_rank(args) -> List[dict]:
+    seeds = seeds_of(args.seeds)
+    rows = load_rows(args.rows.split(","))
+    jax_lines = json_lines(args.jax.split(","))
+    out = []
+    for arm in args.arms.split(","):
+        side = f"torch_{arm}"
+        paired = [s for s in seeds if f"torch_s{s}" in rows and f"{side}_s{s}" in rows]
+        if paired != seeds:
+            raise SystemExit(f"{side}: no pair for seeds {sorted(set(seeds) - set(paired))}")
+        gaps = {s: quality.rel_gaps(rows[f"torch_s{s}"], rows[f"{side}_s{s}"]) for s in seeds}
+        jax_gaps = recorded_gaps(jax_lines, arm)
+        line = {"rank": arm, "seeds": seeds, "jax_seeds": sorted(jax_gaps),
+                "p_one_side": round(exchangeable_p(len(seeds), len(jax_gaps)), 6),
+                "metrics": {}}
+        differs = []
+        for m in VERDICT_METRICS:
+            port = [gaps[s][m] for s in seeds]
+            jax = {s: g[m] for s, g in sorted(jax_gaps.items())}
+            below = all(v < min(port) for v in jax.values())
+            above = all(v > max(port) for v in jax.values())
+            line["metrics"][m] = {
+                "port_gaps": {s: gaps[s][m] for s in seeds}, "jax_gaps": jax,
+                "port_below_each_jax": {s: sum(x < v for x in port) for s, v in jax.items()},
+                "jax_below_all": below, "jax_above_all": above, "differs": below or above}
+            differs.append(below or above)
+        line["verdict"] = ("differs" if all(differs) else
+                           "undecided" if any(differs) else "reproduces")
+        out.append(line)
+    return out
 
 
 def main(argv=None) -> int:
@@ -206,11 +330,24 @@ def main(argv=None) -> int:
     s.add_argument("--b", required=True)
     s.add_argument("--b_seeds", required=True)
     r = sub.add_parser("pairs")
-    r.add_argument("--rows", required=True)
-    r.add_argument("--b", required=True, help="the arm's prefix (e.g. torch_bf16)")
+    r.add_argument("--arm", action="append", required=True,
+                   help="<label>=<prefix>@<JSONL>,... twice: the base arm, then the other")
     r.add_argument("--seeds", required=True)
+    c = sub.add_parser("collapse")
+    c.add_argument("--arm", action="append", required=True,
+                   help="<label>=<prefix>@<JSONL>,... twice: the reference, then the other")
+    c.add_argument("--seeds", required=True)
+    k = sub.add_parser("rank")
+    k.add_argument("--rows", required=True)
+    k.add_argument("--jax", required=True)
+    k.add_argument("--arms", default="d2,refscale")
+    k.add_argument("--seeds", required=True)
     args = p.parse_args(argv)
-    for line in {"arms": cmd_arms, "spread": cmd_spread, "pairs": cmd_pairs}[args.cmd](args):
+    if args.cmd in ("pairs", "collapse") and len(args.arm) != 2:
+        p.error("--arm takes two arms")
+    commands = {"arms": cmd_arms, "spread": cmd_spread, "pairs": cmd_pairs,
+                "collapse": cmd_collapse, "rank": cmd_rank}
+    for line in commands[args.cmd](args):
         print(json.dumps(line), flush=True)
     return 0
 
